@@ -1,0 +1,452 @@
+"""Phased lazy-loading HNSW search (paper §3.3, Algorithm 1) in PyTorch.
+
+The port of ``repro.core.search``. One layer's search is a beam search
+over fixed-shape tensors: the candidate heap and the result list are one
+sorted beam of ``ef`` entries. Lazy loading appears as phases:
+
+- an **in-memory phase** (:func:`batch_search_phase`) expands beam
+  candidates against tier 2 only; a neighbor missing from tier 2 goes to
+  the bounded miss list ``L`` (Algorithm 1 lines 14–16). It ends when
+  the beam is exhausted or ``|L| >= ef`` (lines 22–23);
+- a **load phase** (:func:`batch_load_phase`) merges the rows the driver
+  bulk-loaded for ``L`` into the beam as unexplored candidates (lines
+  24–31).
+
+Every function works on a batch: each state tensor has a leading query
+axis B. The single-query forms (:func:`seed_state`, :func:`search_phase`,
+:func:`load_phase`) run the batched code at B = 1, so the loop and the
+batched drivers give identical bits (DESIGN.md §5). Where the reference
+vmaps a ``lax.while_loop``, :func:`batch_search_phase` loops while any
+query is active and leaves a finished query's state untouched, counters
+included — what vmap's masking does.
+
+The two kernels of the path carry the work: the distances of every hop
+and of every load phase come from ``ops.gather_distance(_batch)`` over the
+rows where they already live (the tier-2 slab during a phase, the
+fetched rows during a load), and the beam merge is ``ops.merge_topk``,
+whose ``src`` output carries the ``explored`` flags through the merge.
+Filters (``banned``) and tombstones come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.core.graph import PAD
+from repro_torch.core.store import CacheState, cache_slots
+from repro_torch.kernels import ops
+
+INF = float("inf")
+
+
+@dataclasses.dataclass
+class Beam:
+    """Sorted candidate/result beam (C == W in the fixed-shape variant)."""
+
+    ids: torch.Tensor  # (..., ef) int32, -1 padded
+    dists: torch.Tensor  # (..., ef) float32, +inf padded
+    explored: torch.Tensor  # (..., ef) bool
+
+    @property
+    def ef(self) -> int:
+        return int(self.ids.shape[-1])
+
+
+@dataclasses.dataclass
+class SearchState:
+    """Per-query state threaded through the phases of one layer search
+    (leading query axis in the batched forms)."""
+
+    beam: Beam
+    # (..., N + 1) bool; the last column is a spare that masked-out rows
+    # scatter into, so a padded row never writes to a real node
+    visited: torch.Tensor
+    miss_ids: torch.Tensor  # (..., miss_cap) int32, -1 padded
+    miss_count: torch.Tensor  # (...) int64
+    n_hops: torch.Tensor  # (...) int64 — beam expansions done
+    n_dist: torch.Tensor  # (...) int64 — distance evaluations done
+
+
+@dataclasses.dataclass
+class Tier2:
+    """Where a search reads resident rows: ``table`` rows, addressed by
+    ``slots(ids) -> (present, slot)``."""
+
+    table: torch.Tensor  # (R, d) float32
+    slots: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def cache_tier2(cache: CacheState) -> Tier2:
+    """Tier 2 as the cache slab: a present id's row is its slot."""
+    return Tier2(cache.slab, lambda ids: cache_slots(cache, ids))
+
+
+def resident_tier2(vectors: torch.Tensor) -> Tier2:
+    """Tier 2 as the whole table (memory-data ratio 100%)."""
+    n = vectors.shape[0]
+    return Tier2(vectors, lambda ids: (ids >= 0, ids.long().clamp(0, n - 1)))
+
+
+def _distances(
+    table: torch.Tensor, ids: torch.Tensor, Q: torch.Tensor, metric: str,
+) -> torch.Tensor:
+    """(B, K) distances of ``table[ids[b]]`` to ``Q[b]``, +inf for ids < 0.
+
+    One query (the loop driver) goes through the single-query form of the
+    kernel, a batch through the batched form; the two are one kernel, so
+    they give identical bits."""
+    if Q.shape[0] == 1:
+        return ops.gather_distance(table, ids[0], Q[0], metric)[None]
+    return ops.gather_distance_batch(table, ids, Q, metric)
+
+
+def beam_init(ef: int, device: torch.device) -> Beam:
+    return Beam(
+        ids=torch.full((ef,), -1, dtype=torch.int32, device=device),
+        dists=torch.full((ef,), INF, dtype=torch.float32, device=device),
+        explored=torch.zeros((ef,), dtype=torch.bool, device=device),
+    )
+
+
+def beam_merge(
+    beam: Beam,
+    new_ids: torch.Tensor,
+    new_dists: torch.Tensor,
+    new_valid: torch.Tensor,
+) -> Beam:
+    """Merge (id, dist) entries into the beam, keep the ef best in stable
+    order, through ``ops.merge_topk``.
+
+    New entries arrive unexplored; invalid ones become sentinels. The
+    merge's tie rule (lower input position first) is ``lax.top_k`` on
+    negated distances, the reference's rule, and its ``src`` output picks
+    each survivor's ``explored`` flag. Its id dedup is a no-op here: new
+    entries are never in the beam (they were unvisited) and a neighbor
+    row holds no id twice.
+    """
+    ef = beam.ef
+    ids = torch.cat(
+        [beam.ids, torch.where(new_valid, new_ids.to(torch.int32), -1)], -1
+    )
+    dists = torch.cat(
+        [beam.dists, torch.where(new_valid, new_dists, INF)], -1
+    )
+    expl = torch.cat([beam.explored, torch.zeros_like(new_valid)], -1)
+    lead = ids.shape[:-1]
+    m = ids.shape[-1]
+    d, i, src = ops.merge_topk(
+        dists.reshape(-1, m).contiguous(), ids.reshape(-1, m).contiguous(), ef
+    )
+    flags = expl.reshape(-1, m).gather(1, src.long().clamp(min=0)) & (src >= 0)
+    return Beam(
+        ids=i.reshape(*lead, ef),
+        dists=d.reshape(*lead, ef),
+        explored=flags.reshape(*lead, ef),
+    )
+
+
+def _where_rows(active: torch.Tensor, new: Beam, old: Beam) -> Beam:
+    a = active[:, None]
+    return Beam(
+        ids=torch.where(a, new.ids, old.ids),
+        dists=torch.where(a, new.dists, old.dists),
+        explored=torch.where(a, new.explored, old.explored),
+    )
+
+
+def batch_make_state(
+    batch: int, ef: int, miss_cap: int, n: int, device: torch.device,
+) -> SearchState:
+    """Fresh state for ``batch`` queries of one layer search."""
+    one = beam_init(ef, device)
+    return SearchState(
+        beam=Beam(*(t.repeat(batch, 1)
+                    for t in (one.ids, one.dists, one.explored))),
+        visited=torch.zeros((batch, n + 1), dtype=torch.bool, device=device),
+        miss_ids=torch.full((batch, miss_cap), -1, dtype=torch.int32,
+                            device=device),
+        miss_count=torch.zeros((batch,), dtype=torch.int64, device=device),
+        n_hops=torch.zeros((batch,), dtype=torch.int64, device=device),
+        n_dist=torch.zeros((batch,), dtype=torch.int64, device=device),
+    )
+
+
+def _push_misses(
+    state: SearchState, ids: torch.Tensor, missing: torch.Tensor
+) -> SearchState:
+    """Append each row's ``ids[missing]`` to its bounded miss list
+    (Alg. 1 line 15); overflow past the cap is dropped (the trigger fires
+    first)."""
+    cap = state.miss_ids.shape[-1]
+    offs = torch.cumsum(missing.long(), -1) - 1
+    pos = state.miss_count[:, None] + torch.where(missing, offs, cap)
+    pos = torch.where(pos < cap, pos, cap)  # cap = spare "drop" column
+    spare = torch.full_like(state.miss_ids[:, :1], -1)
+    miss_ids = torch.cat([state.miss_ids, spare], -1).scatter(
+        1, pos, ids.to(torch.int32)
+    )[:, :cap]
+    miss_count = torch.clamp(
+        state.miss_count + missing.long().sum(-1), max=cap
+    )
+    return dataclasses.replace(state, miss_ids=miss_ids, miss_count=miss_count)
+
+
+def batch_seed_state(
+    states: SearchState,
+    Q: torch.Tensor,  # (B, d)
+    entry_ids: torch.Tensor,  # (B, k) int32, -1 padded
+    tier2: Tier2,
+    metric: str,
+) -> SearchState:
+    """Enter a layer: probe entry points, merging hits into the beam and
+    misses into L (entry points must be resolved before the phase loop —
+    the paper's inter-layer correctness requirement)."""
+    n = states.visited.shape[-1] - 1
+    entry_ids = entry_ids.to(torch.int32)
+    valid = entry_ids >= 0
+    valid = valid & ~states.visited.gather(1, entry_ids.long().clamp(0, n - 1))
+    present, slots = tier2.slots(entry_ids)
+    usable = valid & present
+    dists = _distances(
+        tier2.table, torch.where(usable, slots, -1).to(torch.int32), Q, metric
+    )
+    beam = beam_merge(states.beam, entry_ids, dists, usable)
+    visited = states.visited.scatter(
+        1, torch.where(valid, entry_ids.long(), n), True
+    )
+    states = dataclasses.replace(states, beam=beam, visited=visited)
+    return _push_misses(states, entry_ids, valid & ~present)
+
+
+def batch_search_phase(
+    Q: torch.Tensor,  # (B, d)
+    neighbors_l: torch.Tensor,  # (N, deg) int32, PAD padded
+    states: SearchState,
+    tier2: Tier2,
+    metric: str,
+    ef_trigger: Optional[int] = None,
+    max_hops: int = 100000,
+) -> SearchState:
+    """One in-memory phase of Algorithm 1 (lines 6–22) for B queries.
+
+    Each step expands, for every still-active query, its nearest
+    unexplored candidate against tier 2; misses go to L. A query stops
+    when its beam is exhausted or ``|L| >= ef_trigger``; the loop ends
+    when no query is active (one host sync per step).
+    """
+    s = states
+    trigger = s.beam.ef if ef_trigger is None else ef_trigger
+    n = neighbors_l.shape[0]
+    while True:
+        unexplored = (s.beam.ids >= 0) & ~s.beam.explored
+        active = (
+            unexplored.any(-1) & (s.miss_count < trigger)
+            & (s.n_hops < max_hops)
+        )
+        if not bool(active.any()):
+            return s
+        j = torch.argmin(torch.where(unexplored, s.beam.dists, INF), -1)
+        c = s.beam.ids.gather(1, j[:, None])[:, 0]
+        explored = s.beam.explored.scatter(
+            1, j[:, None],
+            s.beam.explored.gather(1, j[:, None]) | active[:, None],
+        )
+        beam = dataclasses.replace(s.beam, explored=explored)
+        nbrs = neighbors_l[c.long().clamp(0, n - 1)]  # (B, deg)
+        valid = (nbrs != PAD) & active[:, None]
+        safe = torch.where(valid, nbrs, 0).long()
+        fresh = valid & ~s.visited.gather(1, safe)
+        visited = s.visited.scatter(
+            1, torch.where(fresh, nbrs.long(), n), True
+        )
+        present, slots = tier2.slots(torch.where(fresh, nbrs, -1))
+        usable = fresh & present
+        dists = _distances(
+            tier2.table, torch.where(usable, slots, -1).to(torch.int32),
+            Q, metric,
+        )
+        merged = beam_merge(beam, nbrs, dists, usable)
+        s = dataclasses.replace(
+            s,
+            beam=_where_rows(active, merged, beam),
+            visited=visited,
+            n_hops=s.n_hops + active.long(),
+            n_dist=s.n_dist + usable.long().sum(-1),
+        )
+        s = _push_misses(s, nbrs, fresh & ~present)
+
+
+def batch_load_phase(
+    Q: torch.Tensor,  # (B, d)
+    states: SearchState,
+    loaded_ids: torch.Tensor,  # (B, miss_cap) int32, -1 padded
+    table: torch.Tensor,  # (R, d) float32 — the bulk-loaded rows
+    rows: torch.Tensor,  # (B, miss_cap) int32 — row of each id, -1 padded
+    metric: str,
+) -> SearchState:
+    """Merge bulk-loaded rows into each beam (Alg. 1 lines 25–31) and
+    clear L. The driver has already inserted them into tier 2. A query
+    that missed nothing passes all -1 rows and is left unchanged."""
+    valid = loaded_ids >= 0
+    dists = _distances(
+        table, torch.where(valid, rows, -1).to(torch.int32), Q, metric
+    )
+    beam = beam_merge(states.beam, loaded_ids, dists, valid)
+    return dataclasses.replace(
+        states,
+        beam=beam,
+        miss_ids=torch.full_like(states.miss_ids, -1),
+        miss_count=torch.zeros_like(states.miss_count),
+        n_dist=states.n_dist + valid.long().sum(-1),
+    )
+
+
+def finalize_topk(
+    state: SearchState, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k extraction of a (B, ef) beam: (dists, ids), each (B, k),
+    -1/+inf padded when fewer than k entries survive."""
+    ids, dists = state.beam.ids, state.beam.dists
+    bad = ids < 0
+    d, i, _ = ops.merge_topk(
+        torch.where(bad, INF, dists).contiguous(),
+        torch.where(bad, -1, ids).contiguous(), k,
+    )
+    return d, i
+
+
+# ------------------------------------------------------ single-query forms
+#
+# The B = 1 case of the batched functions: the loop driver runs exactly
+# the batched code, so both drivers give identical bits.
+
+
+def _map_state(state: SearchState, fn) -> SearchState:
+    return SearchState(
+        beam=Beam(fn(state.beam.ids), fn(state.beam.dists),
+                  fn(state.beam.explored)),
+        visited=fn(state.visited),
+        miss_ids=fn(state.miss_ids),
+        miss_count=fn(state.miss_count),
+        n_hops=fn(state.n_hops),
+        n_dist=fn(state.n_dist),
+    )
+
+
+def _one(state: SearchState) -> SearchState:
+    return _map_state(state, lambda t: t[None])
+
+
+def _first(state: SearchState) -> SearchState:
+    return _map_state(state, lambda t: t[0])
+
+
+def make_state(ef: int, miss_cap: int, n: int, device: torch.device) -> SearchState:
+    return _first(batch_make_state(1, ef, miss_cap, n, device))
+
+
+def seed_state(
+    state: SearchState, q: torch.Tensor, entry_ids: torch.Tensor,
+    tier2: Tier2, metric: str,
+) -> SearchState:
+    return _first(batch_seed_state(
+        _one(state), q[None], entry_ids[None], tier2, metric
+    ))
+
+
+def search_phase(
+    q: torch.Tensor, neighbors_l: torch.Tensor, state: SearchState,
+    tier2: Tier2, metric: str, ef_trigger: Optional[int] = None,
+    max_hops: int = 100000,
+) -> SearchState:
+    return _first(batch_search_phase(
+        q[None], neighbors_l, _one(state), tier2, metric,
+        ef_trigger=ef_trigger, max_hops=max_hops,
+    ))
+
+
+def load_phase(
+    q: torch.Tensor, state: SearchState, loaded_ids: torch.Tensor,
+    table: torch.Tensor, rows: torch.Tensor, metric: str,
+) -> SearchState:
+    return _first(batch_load_phase(
+        q[None], _one(state), loaded_ids[None], table, rows[None], metric
+    ))
+
+
+# ------------------------------------------------------- in-memory oracle
+
+
+def search_layer_inmem(
+    q: torch.Tensor,
+    vectors: torch.Tensor,  # (N, d) — the whole table resident
+    neighbors_l: torch.Tensor,
+    entry_ids: torch.Tensor,
+    ef: int,
+    metric: str = "l2",
+    max_hops: int = 100000,
+) -> SearchState:
+    """Single-phase search with the whole table in memory (memory-data
+    ratio 100%): L stays empty. The oracle the lazy search must match."""
+    tier2 = resident_tier2(vectors)
+    state = make_state(ef, 1, vectors.shape[0], vectors.device)
+    state = seed_state(state, q, entry_ids, tier2, metric)
+    return search_phase(
+        q, neighbors_l, state, tier2, metric, ef_trigger=2, max_hops=max_hops
+    )
+
+
+def greedy_descend_inmem(
+    q: torch.Tensor,
+    vectors: torch.Tensor,
+    neighbors_upper: torch.Tensor,  # (L-1, N, deg) layers 1..max stacked
+    entry: int,
+    max_level: int,
+    metric: str = "l2",
+    max_hops: int = 10000,
+) -> int:
+    """Greedy ef=1 descent through layers max_level..1 (in-memory)."""
+    cur = int(entry)
+    cur_d = float(ops.gather_distance(
+        vectors, torch.tensor([cur], dtype=torch.int32, device=q.device),
+        q, metric,
+    )[0])
+    hops = 0
+    for lc in range(int(max_level), 0, -1):
+        moved = True
+        while moved and hops < max_hops:
+            nbrs = neighbors_upper[lc - 1, cur]
+            dn = ops.gather_distance(
+                vectors, torch.where(nbrs != PAD, nbrs, -1).to(torch.int32),
+                q, metric,
+            )
+            jbest = int(torch.argmin(dn))
+            moved = float(dn[jbest]) < cur_d
+            if moved:
+                cur, cur_d = int(nbrs[jbest]), float(dn[jbest])
+            hops += 1
+    return cur
+
+
+def knn_search_inmem(
+    q: torch.Tensor,
+    vectors: torch.Tensor,
+    neighbors: torch.Tensor,  # (L, N, deg)
+    entry: int,
+    max_level: int,
+    k: int,
+    ef: int,
+    metric: str = "l2",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full in-memory KNN query: (dists (k,), ids (k,))."""
+    ep = entry
+    if neighbors.shape[0] > 1:
+        ep = greedy_descend_inmem(
+            q, vectors, neighbors[1:], entry, max_level, metric
+        )
+    entry_ids = torch.tensor([ep], dtype=torch.int32, device=q.device)
+    st = search_layer_inmem(q, vectors, neighbors[0], entry_ids, ef, metric)
+    return st.beam.dists[:k], st.beam.ids[:k]

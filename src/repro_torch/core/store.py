@@ -1,0 +1,411 @@
+"""Three-tier data management (paper §3.2) on the port's device.
+
+Tier 2 is :class:`CacheState`: a fixed-capacity float32 slab on the
+engine's device plus an id→slot map, with FIFO (the paper's prototype)
+or LRU eviction. The lazy search computes tier-2 distances straight from
+the slab — :func:`cache_slots` maps ids to slots and the fused
+gather-distance kernel reads the rows there — so a cached row never
+leaves the slab during a search.
+
+Tier 3 is :class:`ExternalStore`: exact access counters and the cost
+model ``t_access = t_setup + n_items * t_per_item`` (paper Fig. 3b) over
+a host-side :class:`~repro_torch.core.storage.StorageBackend`.
+:class:`TieredStore` composes the two: one tier-3 access per bulk load.
+
+Differences from the JAX reference (``repro.core.store``), all
+behaviour-preserving:
+
+- the cache ops update the state's tensors in place and return the same
+  object (the slab is the largest tensor of the query path; the
+  reference's functional updates would copy it on every insert);
+- id batches are not padded to power-of-two buckets (those exist for
+  jit shape reuse); the access counters are unchanged by this;
+- :meth:`TieredStore.gather` returns device rows, and
+  :meth:`TieredStore.gather_batch` returns the deduplicated union rows
+  and per-query positions into them instead of a (B, k, d) copy.
+
+Float32 only; the quantized precisions and invalidation for the mutation
+lifecycle come in later slices of the port (ROADMAP A.7, A.8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.storage import (
+    InMemoryBackend,
+    LatencyModel,
+    StorageBackend,
+    unwrap_backend,
+)
+from repro_torch.device import DeviceLike, resolve_device
+
+EVICT_FIFO = 0
+EVICT_LRU = 1
+
+_EVICTION_NAMES = {"fifo": EVICT_FIFO, "lru": EVICT_LRU}
+
+
+@dataclasses.dataclass
+class CacheState:
+    """Tier-2 cache: float32 slab + id→slot map, all on one device."""
+
+    slab: torch.Tensor  # (capacity, d) float32
+    slot_of: torch.Tensor  # (N,) int32 — slot of id, -1 if absent
+    id_of: torch.Tensor  # (capacity,) int32 — id in slot, -1 if empty
+    clock: torch.Tensor  # () int64 — insertion cursor (FIFO) / tick (LRU)
+    last_used: torch.Tensor  # (capacity,) int32 — LRU timestamps
+
+    @property
+    def capacity(self) -> int:
+        return int(self.slab.shape[0])
+
+    @property
+    def precision(self) -> str:
+        return "float32"
+
+    def nbytes(self) -> int:
+        """Resident tier-2 payload bytes."""
+        cap, dim = self.slab.shape
+        return int(cap) * int(dim) * 4
+
+
+def cache_init(
+    n_items: int, capacity: int, dim: int, device: DeviceLike = None,
+) -> CacheState:
+    capacity = int(max(1, capacity))
+    dev = resolve_device(device)
+    return CacheState(
+        slab=torch.zeros((capacity, dim), dtype=torch.float32, device=dev),
+        slot_of=torch.full((n_items,), -1, dtype=torch.int32, device=dev),
+        id_of=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
+        clock=torch.zeros((), dtype=torch.int64, device=dev),
+        last_used=torch.zeros((capacity,), dtype=torch.int32, device=dev),
+    )
+
+
+def cache_slots(
+    cache: CacheState, ids: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Membership of any-shaped ``ids`` (-1 padded): ``(present, slot)``,
+    with ``slot`` (int64) a valid slab row everywhere (garbage where
+    absent). The id_of cross-check guards against stale mappings after a
+    ring wrap."""
+    safe_ids = ids.long().clamp(0, cache.slot_of.shape[0] - 1)
+    slots = cache.slot_of[safe_ids]
+    safe_slots = slots.long().clamp(0, cache.capacity - 1)
+    present = (slots >= 0) & (ids >= 0) & (cache.id_of[safe_slots] == ids)
+    return present, safe_slots
+
+
+def cache_lookup(
+    cache: CacheState, ids: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Membership + gather: (present, vectors (..., d) — garbage rows where
+    absent)."""
+    present, slots = cache_slots(cache, ids)
+    return present, cache.slab[slots]
+
+
+def cache_lookup_batch(
+    cache: CacheState, ids: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, k) form of :func:`cache_lookup` (the ops are elementwise)."""
+    return cache_lookup(cache, ids)
+
+
+def cache_touch(cache: CacheState, ids: torch.Tensor) -> CacheState:
+    """LRU bookkeeping for a batch of accessed ids (no-op rows for -1).
+    Bumps the clock once per call, as the reference does."""
+    ids = ids.reshape(-1)
+    safe_ids = ids.long().clamp(0, cache.slot_of.shape[0] - 1)
+    slots = cache.slot_of[safe_ids].long()
+    ok = (slots >= 0) & (ids >= 0)
+    tick = cache.clock + 1
+    cache.last_used.scatter_reduce_(
+        0, torch.where(ok, slots, 0),
+        torch.where(ok, tick, 0).to(torch.int32), reduce="amax",
+    )
+    cache.clock = tick
+    return cache
+
+
+def cache_insert(
+    cache: CacheState,
+    ids: torch.Tensor,  # (k,) int32, -1 padded
+    vecs: torch.Tensor,  # (k, d) float32
+    policy: int = EVICT_FIFO,
+) -> CacheState:
+    """Insert a fetched batch, evicting per ``policy``; updates ``cache``
+    in place and returns it.
+
+    FIFO: slots are a ring buffer advanced by the insert cursor. LRU:
+    each insert claims the least-recently-used slot (a stable ascending
+    sort of the timestamps, ties to the lower slot — ``lax.top_k``'s
+    order in the reference). Overflow contract: when one batch exceeds
+    capacity, rows recycle slots and all but the LAST row targeting a
+    slot are dropped ("keep-newest"), chosen by a scatter-max so the
+    result never depends on scatter order. Ids are assumed unique
+    within a batch.
+    """
+    ids = ids.reshape(-1).to(torch.int32)
+    k = ids.shape[0]
+    cap = cache.capacity
+    dev = cache.slab.device
+    if k == 0:
+        if policy != EVICT_FIFO:
+            cache.clock = cache.clock + 1
+        return cache
+    present, _ = cache_slots(cache, ids)
+    need = (ids >= 0) & ~present
+    offsets = torch.cumsum(need.long(), 0) - 1
+    if policy == EVICT_FIFO:
+        slots = (cache.clock + torch.where(need, offsets, 0)) % cap
+        new_clock = cache.clock + need.long().sum()
+    else:
+        m = min(k, cap)
+        lru_slots = torch.sort(cache.last_used, stable=True).indices[:m]
+        slots = lru_slots[offsets.clamp(0, k - 1) % m]
+        new_clock = cache.clock + 1
+    slots = torch.where(need, slots, cap)  # cap = the spare "drop" column
+    order = torch.arange(k, device=dev)
+    winner = torch.full((cap + 1,), -1, dtype=torch.long, device=dev)
+    winner.scatter_reduce_(0, slots, torch.where(need, order, -1), "amax")
+    need = need & (winner[slots] == order)
+    rows = need.nonzero().squeeze(1)  # inserting rows; their slots are unique
+    s = slots[rows]
+    evicted = cache.id_of[s].long()
+    # 1) unmap evicted ids, 2) map the new ones (the reference's order)
+    cache.slot_of[evicted[evicted >= 0]] = -1
+    new_ids = ids[rows]
+    cache.slot_of[new_ids.long()] = s.to(torch.int32)
+    cache.slab[s] = vecs[rows].to(cache.slab.dtype)
+    cache.id_of[s] = new_ids
+    cache.last_used[s] = new_clock.to(torch.int32)
+    cache.clock = new_clock
+    return cache
+
+
+def cache_insert_batch(
+    cache: CacheState,
+    ids: torch.Tensor,  # (B, k) int32, -1 padded
+    vecs: torch.Tensor,  # (B, k, d) float32
+    policy: int = EVICT_FIFO,
+) -> CacheState:
+    """Insert a (B, k) fetched batch as one flattened (B*k,) insert."""
+    B, k = ids.shape
+    return cache_insert(
+        cache, ids.reshape(B * k), vecs.reshape(B * k, -1), policy=policy
+    )
+
+
+# --------------------------------------------------------------- tier 3
+
+
+@dataclasses.dataclass
+class AccessStats:
+    """Counters behind Eq. 1 (redundancy) and Eq. 2 (latency model)."""
+
+    n_db: int = 0  # number of external accesses (transactions)
+    items_fetched: int = 0  # total items pulled from tier 3
+    items_used: int = 0  # items that were actually needed (#hit in Eq. 1)
+    modeled_time: float = 0.0  # sum of modeled t_db per access
+    wall_time: float = 0.0  # measured host time in fetch calls
+
+    def redundancy(self) -> float:
+        """Eq. 1: R = 1 - hits / (n_db * prefetch_size)."""
+        if self.items_fetched == 0:
+            return 0.0
+        return 1.0 - self.items_used / self.items_fetched
+
+    def reset(self) -> None:
+        self.n_db = 0
+        self.items_fetched = 0
+        self.items_used = 0
+        self.modeled_time = 0.0
+        self.wall_time = 0.0
+
+
+class ExternalStore:
+    """Tier 3: accounting shell (counters + cost model) over a host-side
+    backend. ``source`` is a raw ``(N, d)`` array (wrapped in
+    :class:`InMemoryBackend`) or any :class:`StorageBackend`; a
+    :class:`LatencyModel` is composed on unless the backend has one."""
+
+    def __init__(
+        self,
+        source: Union[np.ndarray, StorageBackend],
+        t_setup: float = 1.0e-3,
+        t_per_item: float = 2.0e-6,
+        simulate_latency: bool = False,
+    ):
+        backend = source if hasattr(source, "fetch") else InMemoryBackend(source)
+        if not isinstance(backend, LatencyModel):
+            backend = LatencyModel(
+                backend, t_setup, t_per_item, simulate_latency
+            )
+        self.backend: StorageBackend = backend
+        self.stats = AccessStats()
+        self._pending: set = set()  # fetched ids not yet demanded
+
+    @property
+    def base_backend(self) -> StorageBackend:
+        """The storage medium itself, LatencyModel wrappers stripped."""
+        return unwrap_backend(self.backend)
+
+    @property
+    def n_items(self) -> int:
+        return self.backend.n_items
+
+    @property
+    def dim(self) -> int:
+        return self.backend.dim
+
+    def access_cost(self, n: int) -> float:
+        return self.backend.access_cost(n)
+
+    def fetch(self, ids: np.ndarray) -> np.ndarray:
+        """ONE external access (one 'transaction') for a batch of ids."""
+        t0 = time.perf_counter()
+        ids = np.asarray(ids)
+        ids = ids[ids >= 0]
+        out = self.backend.fetch(ids)
+        cost = self.access_cost(len(ids))
+        self.stats.n_db += 1
+        self.stats.items_fetched += len(ids)
+        self.stats.modeled_time += cost
+        self.stats.wall_time += time.perf_counter() - t0
+        self._pending.update(int(i) for i in ids)
+        return out
+
+    def fetch_sequential(self, ids: np.ndarray) -> np.ndarray:
+        """n separate accesses for n items (paper Fig. 3b's slow path)."""
+        ids = np.asarray(ids)
+        ids = ids[ids >= 0]
+        out = np.empty((len(ids), self.dim), np.float32)
+        for j, i in enumerate(ids):
+            out[j] = self.fetch(np.array([i]))
+        return out
+
+    def mark_used_ids(self, ids) -> None:
+        """Eq. 1 hit accounting, per fetch event: each fetched copy of an
+        item counts as 'used' when first demanded after that fetch."""
+        for i in np.atleast_1d(np.asarray(ids)).tolist():
+            i = int(i)
+            if i in self._pending:
+                self._pending.discard(i)
+                self.stats.items_used += 1
+
+
+class TieredStore:
+    """Tier 2 (device slab) + tier 3 (host backend) used by the engine.
+
+    ``gather(ids)``: look up tier 2; fetch only the misses from tier 3 in
+    ONE access; insert them into tier 2; return all rows on the device.
+    This is the bulk phase-2 load of the lazy search (Algorithm 1 line
+    24).
+    """
+
+    def __init__(
+        self,
+        external: ExternalStore,
+        capacity: int,
+        eviction: str = "fifo",
+        device: DeviceLike = None,
+    ):
+        self.external = external
+        self.eviction = _EVICTION_NAMES[eviction]
+        self.device = resolve_device(device)
+        self.cache = cache_init(
+            external.n_items, capacity, external.dim, self.device
+        )
+        self.hits = 0
+        self.misses = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.cache.capacity
+
+    def cache_bytes(self) -> int:
+        """Resident tier-2 payload bytes."""
+        return self.cache.nbytes()
+
+    def resize(self, capacity: int) -> None:
+        """Re-initialize tier 2 with a new capacity (cache-size optimizer)."""
+        self.cache = cache_init(
+            self.external.n_items, capacity, self.external.dim, self.device
+        )
+        self.hits = 0
+        self.misses = 0
+
+    def lookup(self, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return cache_lookup(self.cache, ids)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def gather(self, ids: np.ndarray) -> torch.Tensor:
+        """Bulk gather with single-access miss fill: ``(k, d)`` device rows
+        of ``ids`` ((k,), no padding)."""
+        ids = np.asarray(ids, dtype=np.int32)
+        ids_t = self._upload(ids)
+        present, slots = cache_slots(self.cache, ids_t)
+        # read the hits before the insert below can evict their slots
+        rows = self.cache.slab[slots]
+        present_np = present.cpu().numpy()
+        n_miss = int((~present_np).sum())
+        self.hits += int(present_np.sum())
+        self.misses += n_miss
+        if n_miss:
+            miss_ids = ids[~present_np]
+            fetched = self._upload(
+                np.asarray(self.external.fetch(miss_ids), np.float32)
+            )
+            self.cache = cache_insert(
+                self.cache, self._upload(miss_ids), fetched,
+                policy=self.eviction,
+            )
+            rows[self._upload(np.nonzero(~present_np)[0])] = fetched
+        self.external.mark_used_ids(ids)  # every gathered id is demanded
+        if self.eviction == EVICT_LRU:
+            self.cache = cache_touch(self.cache, ids_t)
+        return rows
+
+    def gather_batch(self, ids: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cross-query amortized bulk gather (DESIGN.md §5).
+
+        ``ids`` is a (B, k) matrix of -1-padded per-query miss lists. The
+        rows are unioned and deduplicated (sorted), the union's tier-2
+        misses are fetched from tier 3 in ONE access via :meth:`gather`,
+        and the result comes back as ``(rows (U, d), pos (B, k) int32)``:
+        the union's rows on the device and each entry's position in them
+        (-1 for padding), so nothing is materialised at (B, k, d).
+        """
+        ids = np.asarray(ids, dtype=np.int32)
+        valid = ids >= 0
+        pos = np.full(ids.shape, -1, np.int32)
+        if not valid.any():
+            rows = torch.zeros(
+                (0, self.external.dim), dtype=torch.float32, device=self.device
+            )
+            return rows, self._upload(pos)
+        union = np.unique(ids[valid])  # sorted — searchsorted below
+        rows = self.gather(union)
+        pos[valid] = np.searchsorted(union, ids[valid])
+        return rows, self._upload(pos)
+
+    def warm(self, ids: np.ndarray) -> None:
+        """Pre-populate tier 2 (initialization-stage index loading),
+        reading the storage medium directly: init-stage loading is not a
+        query-time access, so it is neither counted nor simulated."""
+        ids = np.asarray(ids, dtype=np.int32)
+        vecs = np.asarray(self.external.base_backend.fetch(ids), np.float32)
+        self.cache = cache_insert(
+            self.cache, self._upload(ids), self._upload(vecs),
+            policy=self.eviction,
+        )

@@ -1,0 +1,102 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each ``<name>_ref`` computes what the hand-written kernel computes, in
+float32. On a CPU tensor :mod:`repro_torch.kernels.ops` runs these; on the
+card ``chip_smoke.py`` holds each kernel against its plain version, and
+the CPU tests hold the plain versions to the JAX package's oracles.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+INF = float("inf")
+
+
+def gather_distance_batch_ref(
+    table: torch.Tensor,  # (N, d) float32
+    ids: torch.Tensor,  # (B, K) int32, -1 padded
+    Q: torch.Tensor,  # (B, d) float32
+    metric: str = "l2",
+) -> torch.Tensor:
+    """(B, K) distances of ``table[ids[b]]`` to ``Q[b]``; +inf where id < 0.
+
+    Ids past the table's end are clipped to its last row, as the
+    reference's oracle does.
+    """
+    B, K = ids.shape
+    if table.shape[0] == 0:
+        return torch.full((B, K), INF, dtype=torch.float32, device=ids.device)
+    safe = ids.long().clamp(0, table.shape[0] - 1)
+    x = table[safe].float()  # (B, K, d)
+    q = Q.float()[:, None, :]
+    if metric == "l2":
+        diff = x - q
+        d = (diff * diff).sum(-1)
+    elif metric == "ip":
+        d = -(x * q).sum(-1)
+    elif metric == "cos":
+        d = -(x * q).sum(-1) / (
+            (torch.linalg.vector_norm(x, dim=-1) + 1e-30)
+            * (torch.linalg.vector_norm(q, dim=-1) + 1e-30)
+        )
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    return torch.where(ids >= 0, d, torch.full_like(d, INF))
+
+
+def gather_distance_ref(
+    table: torch.Tensor,  # (N, d)
+    ids: torch.Tensor,  # (B,) int32, -1 padded
+    q: torch.Tensor,  # (d,)
+    metric: str = "l2",
+) -> torch.Tensor:
+    """Single-query form: the batched form at one query, so both give the
+    same bits for the same row and query."""
+    return gather_distance_batch_ref(table, ids[None], q[None], metric)[0]
+
+
+def merge_topk_ref(
+    dists: torch.Tensor,  # (B, M) float32 candidate distances
+    ids: torch.Tensor,  # (B, M) int32 global ids, -1 sentinel padded
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The k smallest of each row as ``(dists, ids, src)``, each (B, k).
+
+    Entries with ``id < 0`` or a non-finite distance are sentinels and
+    never win. A duplicate id keeps only its best ``(dist, position)``
+    copy. Ties go to the lower input position (``lax.top_k``'s order on
+    negated distances). ``src`` is each winner's input position; rows
+    past the survivors come back ``(+inf, -1, -1)``.
+    """
+    ids = ids.int()
+    B, M = dists.shape
+    if k > M:  # fewer candidates than k: pad with sentinels
+        dists = torch.cat(
+            [dists, dists.new_full((B, k - M), INF)], dim=1
+        )
+        ids = torch.cat([ids, ids.new_full((B, k - M), -1)], dim=1)
+        M = k
+    d = dists.float()
+    d = torch.where((ids >= 0) & torch.isfinite(d), d, torch.full_like(d, INF))
+    # stable ascending sort: equal distances keep input-position order
+    d_s, order = torch.sort(d, dim=1, stable=True)
+    i_s = ids.gather(1, order)
+    valid = torch.isfinite(d_s)
+    # duplicate = an earlier (better-ranked) valid entry carries the same id
+    same = i_s[:, :, None] == i_s[:, None, :]
+    earlier = torch.ones(M, M, dtype=torch.bool, device=d.device).tril(-1)
+    dup = (same & earlier & valid[:, :, None] & valid[:, None, :]).any(-1)
+    keep = valid & ~dup
+    # kept entries stay ascending and in position order among ties, so a
+    # stable partition that moves them to the front yields the k winners
+    sel = torch.sort((~keep).to(torch.uint8), dim=1, stable=True)[1][:, :k]
+    ok = keep.gather(1, sel)
+    return (
+        torch.where(ok, d_s.gather(1, sel), torch.full_like(d_s[:, :k], INF)),
+        torch.where(ok, i_s.gather(1, sel), torch.full_like(i_s[:, :k], -1)),
+        torch.where(ok, order.gather(1, sel).int(),
+                    torch.full_like(i_s[:, :k], -1)),
+    )

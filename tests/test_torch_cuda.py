@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips elsewhere; the skip is
+decided when a test runs, not at import. The file imports neither JAX
+nor the JAX package, so it also runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances: the merge only selects, so it must match exactly; the
+gather-distance sums d float32 products in another order than the plain
+version, so it matches to rtol 1e-5, atol 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine as E
+from repro_torch.core.hnsw import build_hnsw
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.topk import MAX_CANDIDATES
+
+METRICS = ["l2", "ip", "cos"]
+
+MERGE_CASES = {
+    "ties": ([[0.0] * 6], [[10, 11, 12, 13, 14, 15]], 6),
+    "sentinels": ([[np.nan, 0.5, -np.inf, np.inf, 1.5, 0.25]],
+                  [[1, 2, 3, 4, -1, 6]], 4),
+    "duplicates": ([[5.0, 2.0, 2.0, 7.0, 2.0]], [[3, 9, 9, 3, 4]], 4),
+    "cross_row_duplicates": ([[1.0, 2.0, 3.0], [3.0, 2.0, 1.0]],
+                             [[7, 7, 8], [7, 8, 8]], 3),
+    "k_exceeds_m": ([[3.0, 1.0]], [[5, 8]], 5),
+    "all_sentinel_row": ([[1.0, 1.0, 1.0], [1.0, 1.0, 1.0]],
+                         [[-1, -1, -1], [-1, 7, -1]], 2),
+}
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _gd_inputs(seed, n, d, B, K):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((B, d)).astype(np.float32)
+    ids = rng.integers(-1, n, (B, K)).astype(np.int32)
+    ids[:, -1] = -1
+    return table, ids, Q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [768, 30])  # float4 path, scalar path
+def test_gather_distance_kernel_matches_plain(cuda, metric, d):
+    table, ids, Q = _gd_inputs(3, n=300, d=d, B=8, K=97)
+    args = [torch.from_numpy(a).to(cuda) for a in (table, ids, Q)]
+    before = ops.launch_counts()
+    got = ops.gather_distance_batch(*args, metric)
+    single = ops.gather_distance(args[0], args[1][0], args[2][0], metric)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["gather_distance_batch"] == before["gather_distance_batch"] + 1
+    assert after["gather_distance"] == before["gather_distance"] + 1
+    want = ref.gather_distance_batch_ref(*args, metric)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.isinf(got[args[1] < 0]).all()
+    assert torch.equal(single, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_merge_topk_kernel_matches_plain(cuda, case):
+    d, i, k = MERGE_CASES[case]
+    d = torch.tensor(d, dtype=torch.float32, device=cuda)
+    i = torch.tensor(i, dtype=torch.int32, device=cuda)
+    got = ops.merge_topk(d, i, k)
+    want = ref.merge_topk_ref(d, i, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,k", [(32, 96, 64), (32, 161, 64), (32, 33, 1),
+                                   (3, 1000, 50), (1, 7, 3),
+                                   (2, MAX_CANDIDATES, 16)])
+def test_merge_topk_kernel_random(cuda, B, M, k):
+    rng = np.random.default_rng(B + M + k)
+    d = np.round(rng.random((B, M)), 2).astype(np.float32)
+    i = rng.integers(0, max(2, M // 2), (B, M)).astype(np.int32)
+    i[rng.random((B, M)) < 0.15] = -1
+    d[rng.random((B, M)) < 0.05] = np.nan
+    d[rng.random((B, M)) < 0.05] = np.inf
+    dt, it = torch.from_numpy(d).to(cuda), torch.from_numpy(i).to(cuda)
+    for g, w in zip(ops.merge_topk(dt, it, k), ref.merge_topk_ref(dt, it, k)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    table = torch.zeros((10, 8), device=cuda)
+    ids = torch.zeros((2, 3), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        ops.gather_distance_batch(table, ids, torch.zeros((2, 8), device=cuda))
+    with pytest.raises(ValueError):
+        ops.merge_topk(torch.zeros((2, 3), device=cuda),
+                       torch.zeros((2, 3), dtype=torch.int32), 2)
+    wide = (1, MAX_CANDIDATES + 1)  # more than one block's shared memory
+    with pytest.raises(ValueError):
+        ops.merge_topk(torch.zeros(wide, device=cuda),
+                       torch.zeros(wide, dtype=torch.int32, device=cuda), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["batched", "loop"])
+def test_engine_on_card_matches_engine_on_cpu(cuda, mode):
+    """The same graph and queries served on the card and on the CPU:
+    equal ids and access counts, distances to float32 rounding, and the
+    driver's kernels ran. (Loop and batched results are not compared:
+    a cold lazy search depends on the tier-2 state it meets, which the
+    two drivers evolve differently — the JAX engine differs the same way
+    on these inputs.)"""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((600, 64)).astype(np.float32)
+    Q = X[rng.choice(600, 6)] + 0.1 * rng.standard_normal((6, 64)).astype(
+        np.float32)
+    g = build_hnsw(X, M=8, ef_construction=40, seed=0)
+    res = {}
+    ops.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        eng = E.WebANNSEngine(X, g, E.EngineConfig(cache_capacity=150,
+                                                   device=dev))
+        res[dev] = eng.search(E.SearchRequest(query=Q, k=10, ef=32,
+                                              batch_mode=mode))
+    counts = ops.launch_counts()
+    form = "gather_distance_batch" if mode == "batched" else "gather_distance"
+    assert counts[form] > 0 and counts["merge_topk"] > 0, counts
+    on, off = res["cuda"], res["cpu"]
+    np.testing.assert_array_equal(on.ids, off.ids)
+    np.testing.assert_allclose(on.dists, off.dists, rtol=1e-5)
+    assert on.batch_stats.n_db == off.batch_stats.n_db
+    assert [s.n_db for s in on.stats] == [s.n_db for s in off.stats]

@@ -1,0 +1,104 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
+
+- every module of ``src/repro_torch/`` and ``chip_smoke.py`` is scanned
+  for an import of ``jax``/``jaxlib``/``repro``;
+- every module of the package imports in a fresh interpreter in which
+  ``jax`` and ``repro`` cannot be imported at all;
+- the entry points default to CUDA and raise where it is absent.
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import engine as P
+from repro_torch.core.graph import empty_graph
+from repro_torch.device import resolve_device
+
+ROOT = Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [(line, mod) for line, mod in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_module_imports_without_jax():
+    modules = [m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch.")]
+    assert "repro_torch.core.engine" in modules
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None  # any import of them now fails\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_engine_build_raises_without_cuda(no_cuda):
+    X = np.random.default_rng(0).standard_normal((20, 8)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="is_available"):
+        P.WebANNSEngine.build(X, M=4, ef_construction=8)
+    with pytest.raises(RuntimeError, match="is_available"):
+        P.WebANNSEngine.build(X, M=4, ef_construction=8,
+                              config=P.EngineConfig(device=None))
+    with pytest.raises(RuntimeError, match="is_available"):
+        P.WebANNSEngine(X, empty_graph(20, 0, 4), P.EngineConfig())
+
+
+def test_engine_runs_on_cpu_only_when_asked():
+    X = np.random.default_rng(0).standard_normal((60, 8)).astype(np.float32)
+    eng = P.WebANNSEngine.build(X, M=4, ef_construction=16,
+                                config=P.EngineConfig(device="cpu"))
+    assert eng.device == torch.device("cpu")
+    assert eng.store.cache.slab.device == torch.device("cpu")
+    res = eng.search(P.SearchRequest(query=X[3], k=3, ef=16))
+    assert res.ids[0] == 3

@@ -1,0 +1,246 @@
+"""Port kernels: plain PyTorch versions against the JAX package, and the
+Hopper kernels against their plain versions on the card.
+
+On the CPU the port's ops run their plain versions, which must match the
+reference's Pallas kernels (interpret mode) and its jnp oracles: the
+gather-distance within float32 tolerance (rtol 1e-5, a different
+summation order), the merge exactly (it only selects). The kernels
+against their plain versions are in ``test_torch_cuda.py``: they need
+the card, where JAX is not installed.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import distances as RD
+from repro.core import search as RS
+from repro.kernels import ref as jref
+from repro.kernels.gather_distance import (
+    gather_distance_batch_pallas,
+    gather_distance_pallas,
+)
+from repro.kernels.topk import merge_topk_pallas
+from repro_torch.core import distances as PD
+from repro_torch.core import search as PS
+from repro_torch.kernels import ops
+
+METRICS = ["l2", "ip", "cos"]
+
+
+def _gd_inputs(seed, n=40, d=20, B=6, K=9):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((B, d)).astype(np.float32)
+    ids = rng.integers(-1, n, (B, K)).astype(np.int32)
+    ids[:, -1] = -1  # every row has padding
+    return table, ids, Q
+
+
+# ---------------------------------------------------------- distances
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_distances_match_reference(metric):
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((50, 16)).astype(np.float32)
+    Q = rng.standard_normal((4, 16)).astype(np.float32)
+    Xt, Qt = torch.from_numpy(X), torch.from_numpy(Q)
+    np.testing.assert_allclose(
+        PD.point_distance(Xt, Qt[0], metric).numpy(),
+        np.asarray(RD.point_distance(jnp.asarray(X), jnp.asarray(Q[0]),
+                                     metric)), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        PD.distance_matrix(Qt, Xt, metric).numpy(),
+        np.asarray(RD.distance_matrix(jnp.asarray(Q), jnp.asarray(X),
+                                      metric)), rtol=1e-5, atol=1e-4)
+    d, i = PD.exact_topk(Qt, Xt, 5, metric)
+    rd, ri = RD.exact_topk(jnp.asarray(Q), jnp.asarray(X), 5, metric)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(d.numpy(), np.asarray(rd), rtol=1e-5,
+                               atol=1e-4)
+
+
+# ---------------------------------------------------------- gather-distance
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_gather_distance_batch_plain_matches_reference(metric):
+    table, ids, Q = _gd_inputs(1)
+    got = ops.gather_distance_batch(
+        torch.from_numpy(table), torch.from_numpy(ids), torch.from_numpy(Q),
+        metric,
+    ).numpy()
+    pallas = np.asarray(gather_distance_batch_pallas(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(Q), metric=metric,
+        interpret=True,
+    ))
+    oracle = np.asarray(jref.gather_distance_batch_ref(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(Q), metric
+    ))
+    assert np.isinf(got[ids < 0]).all()
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_gather_distance_single_plain_matches_reference(metric):
+    table, ids, Q = _gd_inputs(2)
+    row, q = ids[0], Q[0]
+    got = ops.gather_distance(
+        torch.from_numpy(table), torch.from_numpy(row), torch.from_numpy(q),
+        metric,
+    ).numpy()
+    pallas = np.asarray(gather_distance_pallas(
+        jnp.asarray(table), jnp.asarray(row), jnp.asarray(q), metric=metric,
+        interpret=True,
+    ))
+    oracle = np.asarray(jref.gather_distance_ref(
+        jnp.asarray(table), jnp.asarray(row), jnp.asarray(q), metric
+    ))
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+    # the single form is the batched form at one query: identical bits
+    batched = ops.gather_distance_batch(
+        torch.from_numpy(table), torch.from_numpy(ids), torch.from_numpy(Q),
+        metric,
+    ).numpy()
+    np.testing.assert_array_equal(got, batched[0])
+
+
+# --------------------------------------------------------------- merge-topk
+
+
+def _merge_all(d, i, k):
+    """(dists, ids, src) from the port's plain merge, the reference's
+    Pallas kernel (interpret mode) and its jnp oracle."""
+    got = [t.numpy() for t in ops.merge_topk(
+        torch.from_numpy(d), torch.from_numpy(i), k
+    )]
+    pallas = [np.asarray(t) for t in merge_topk_pallas(
+        jnp.asarray(d), jnp.asarray(i), k, interpret=True
+    )]
+    oracle = [np.asarray(t) for t in jref.merge_topk_ref(
+        jnp.asarray(d), jnp.asarray(i), k
+    )]
+    return got, pallas, oracle
+
+
+def _check_merge(d, i, k):
+    d = np.asarray(d, np.float32)
+    i = np.asarray(i, np.int32)
+    got, pallas, oracle = _merge_all(d, i, k)
+    for name, want in (("pallas", pallas), ("oracle", oracle)):
+        for g, w, what in zip(got, want, ("dists", "ids", "src")):
+            np.testing.assert_array_equal(g, w, err_msg=f"{name} {what}")
+    return got
+
+
+MERGE_CASES = {
+    # all-equal distances: output order is input order
+    "ties": ([[0.0, 0.0, 0.0, 0.0, 0.0, 0.0]], [[10, 11, 12, 13, 14, 15]], 6),
+    # nan / ±inf distances and id -1 are sentinels
+    "sentinels": ([[np.nan, 0.5, -np.inf, np.inf, 1.5, 0.25]],
+                  [[1, 2, 3, 4, -1, 6]], 4),
+    # a duplicated id keeps its best (dist, position) copy
+    "duplicates": ([[5.0, 2.0, 2.0, 7.0, 2.0]], [[3, 9, 9, 3, 4]], 4),
+    # duplicates in one row must not leak into another row
+    "cross_row_duplicates": ([[1.0, 2.0, 3.0], [3.0, 2.0, 1.0]],
+                             [[7, 7, 8], [7, 8, 8]], 3),
+    "k_exceeds_m": ([[3.0, 1.0]], [[5, 8]], 5),
+    "all_sentinel_row": ([[1.0, 1.0, 1.0], [1.0, 1.0, 1.0]],
+                         [[-1, -1, -1], [-1, 7, -1]], 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_merge_topk_plain_hand_cases(case):
+    d, i, k = MERGE_CASES[case]
+    _check_merge(d, i, k)
+
+
+@pytest.mark.parametrize(
+    "B,M,k",
+    [(1, 1, 1), (3, 7, 3), (8, 44, 11), (5, 130, 16), (2, 3, 9),
+     (4, 97 + 64, 64)],
+)
+def test_merge_topk_plain_random(B, M, k):
+    rng = np.random.default_rng(B * 1000 + M + k)
+    d = rng.standard_normal((B, M)).astype(np.float32) ** 2
+    i = rng.integers(0, max(2, M // 2), (B, M)).astype(np.int32)
+    i = np.where(rng.random((B, M)) < 0.2, -1, i)
+    d = np.where(rng.random((B, M)) < 0.1,
+                 rng.choice([np.nan, np.inf, -np.inf], (B, M)), d)
+    d[:, : M // 3] = np.round(d[:, : M // 3], 1)  # ties
+    _check_merge(d.astype(np.float32), i, k)
+
+
+# ------------------------------------------------------------- beam merge
+
+
+def _beam_case(seed, ef=8, deg=6):
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(50)[:ef].astype(np.int32)
+    dists = np.sort(np.round(rng.random(ef), 1)).astype(np.float32)
+    ids[-2:] = -1
+    dists[-2:] = np.inf
+    explored = rng.random(ef) < 0.5
+    explored[-2:] = False
+    new_ids = (50 + rng.permutation(20)[:deg]).astype(np.int32)
+    new_dists = np.round(rng.random(deg), 1).astype(np.float32)  # ties
+    new_valid = rng.random(deg) < 0.7
+    return ids, dists, explored, new_ids, new_dists, new_valid
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_beam_merge_matches_reference(seed):
+    ids, dists, explored, new_ids, new_dists, new_valid = _beam_case(seed)
+    want = RS.beam_merge(
+        RS.Beam(jnp.asarray(ids), jnp.asarray(dists), jnp.asarray(explored)),
+        jnp.asarray(new_ids), jnp.asarray(new_dists), jnp.asarray(new_valid),
+    )
+    got = PS.beam_merge(
+        PS.Beam(torch.from_numpy(ids), torch.from_numpy(dists),
+                torch.from_numpy(explored)),
+        torch.from_numpy(new_ids), torch.from_numpy(new_dists),
+        torch.from_numpy(new_valid),
+    )
+    for f in dataclasses.fields(PS.Beam):
+        np.testing.assert_array_equal(
+            getattr(got, f.name).numpy(), np.asarray(getattr(want, f.name)),
+            err_msg=f.name,
+        )
+
+
+def test_finalize_topk_matches_reference():
+    ids, dists, explored, *_ = _beam_case(5)
+    k = 5
+    want_d, want_i = RS.finalize_topk(
+        dataclasses.replace(
+            RS.make_state(len(ids), 4, 64),
+            beam=RS.Beam(jnp.asarray(ids), jnp.asarray(dists),
+                         jnp.asarray(explored)),
+        ), k,
+    )
+    state = PS.batch_make_state(1, len(ids), 4, 64, torch.device("cpu"))
+    state = dataclasses.replace(state, beam=PS.Beam(
+        torch.from_numpy(ids)[None], torch.from_numpy(dists)[None],
+        torch.from_numpy(explored)[None],
+    ))
+    got_d, got_i = PS.finalize_topk(state, k)
+    np.testing.assert_array_equal(got_i[0].numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_d[0].numpy(), np.asarray(want_d))
+
+
+def test_ops_run_plain_versions_on_cpu_tensors():
+    """A CPU tensor never reaches a kernel: no build, no launch counted."""
+    ops.reset_launch_counts()
+    table, ids, Q = _gd_inputs(4)
+    ops.gather_distance_batch(torch.from_numpy(table), torch.from_numpy(ids),
+                              torch.from_numpy(Q))
+    ops.merge_topk(torch.zeros(2, 5), torch.zeros(2, 5, dtype=torch.int32), 3)
+    assert ops.launch_counts() == {
+        "gather_distance": 0, "gather_distance_batch": 0, "merge_topk": 0}
