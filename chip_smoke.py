@@ -10,24 +10,35 @@ the script exits non-zero:
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every kernel source under ``src/repro_torch/csrc`` with
-   ``nvcc`` (timed);
+   ``nvcc``, one process per source, all at once (timed);
 3. kernels against their plain PyTorch versions, on the card, at the
-   shapes of the query path;
-4. the query path: an N = 10,000, d = 768 corpus, an HNSW graph at the
-   paper's widths (M = 16, ef_construction = 200), and engines on the
-   card with a cold 25% tier 2 serving one single query, a batch of 32
-   in ``batched`` mode and the same batch in ``loop`` mode; checked
-   for loop = batched bits, fewer tier-3 accesses when batched,
-   recall@10 against brute force, kernel launches, and agreement with
-   an engine on the CPU;
+   shapes of the query path (the dequant kernel at int8 and float16);
+4. the query paths, on one N = 10,000, d = 768 corpus and one HNSW graph
+   at the paper's widths (M = 16, ef_construction = 200), each on fresh
+   engines on the card with a cold 25% tier 2 and its launch counts set
+   to 0 just before it and read just after:
+   - float32: one single query, a batch of 32 in ``batched`` mode and
+     the same batch in ``loop`` mode; checked for loop = batched bits,
+     fewer tier-3 accesses when batched, recall@10 against brute force,
+     kernel launches, and agreement with an engine on the CPU;
+   - int8 and float16 tier 2 with the exact rerank: the same three
+     requests; checked for recall@10, ids against the CPU engine driver
+     by driver and loop against batched (≥ 99% of positions), a tier 2
+     bit-equal to the CPU engine's after the batched search, one rerank
+     access a query or a batch, and the dequant kernel's launches;
+   - the fused driver at float32, float16 and int8, serving the 32
+     queries one at a time; checked as above, and float32 fused against
+     the float32 loop's bits;
 5. times: each kernel, its plain version and its bound (CUDA events),
-   and the end-to-end latency of batched and single-query searches.
+   and the end-to-end latency of batched, single-query and fused
+   searches at each precision.
 
 Standard output ends with four lines: every number of the run as one
-``record:`` JSON object, the card's name and power limit, one JSON object
-listing the kernels, and one ``{"ok": true, "device": ...}`` object.
-Without CUDA, or without the repository around it, the script exits
-non-zero and prints no result.
+``record:`` JSON object (also written to ``build/chip_smoke.json``),
+the card's name and power limit, one JSON object listing the kernels,
+and one ``{"ok": true, "device": ...}`` object. Without CUDA, or without
+the repository around it, the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -51,8 +62,17 @@ F32_OPS_PER_S = 67e12
 
 # gather-distance vs its plain version: both sum 768 float32 products,
 # in a different order (32 lanes + a shuffle tree against torch's
-# reduction), so they agree to float32 rounding, not bit for bit
+# reduction), so they agree to float32 rounding, not bit for bit; the
+# dequant kernel's dequantized elements equal the plain version's, and
+# its sums differ in the same way
 GD_RTOL, GD_ATOL = 1e-5, 1e-4
+
+QUANT = ("int8", "float16")
+PRECISIONS = ("float32",) + QUANT
+# a quantized path's ids against another run of it (the CPU engine, or
+# the other driver): a cold lazy search depends on the tier-2 state it
+# meets, so a near-tie rounded differently can change a later phase
+MIN_AGREEMENT = 0.99
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +107,8 @@ def load_port():
     """Import the port from the checkout this script sits in."""
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core.engine as engine
+    from repro_torch import convert
+    from repro_torch.core import quant
     from repro_torch.core.eval import brute_force_topk, recall_at_k
     from repro_torch.core.hnsw import build_hnsw
     from repro_torch.data.synthetic import corpus_embeddings
@@ -96,6 +118,7 @@ def load_port():
         engine=engine, brute_force_topk=brute_force_topk,
         recall_at_k=recall_at_k, build_hnsw=build_hnsw,
         corpus_embeddings=corpus_embeddings, build=_build, ops=ops, ref=ref,
+        convert=convert, quant=quant,
     )
 
 
@@ -203,6 +226,7 @@ def check_kernels(port, shape: Shape, dev, rng) -> dict:
             err["gather_distance"] = max(
                 err["gather_distance"],
                 float((one[fin[0]] - one_ref[fin[0]]).abs().max()))
+    err.update(check_dequant_kernels(port, shape, dev, rng))
     for B, M, k in ((shape.batch, shape.ef + shape.degree, shape.ef),
                     (shape.batch, shape.ef + shape.miss_cap, shape.ef),
                     (shape.batch, shape.degree + 1, 1)):
@@ -212,6 +236,61 @@ def check_kernels(port, shape: Shape, dev, rng) -> dict:
         torch.cuda.synchronize()
         for g, w, what in zip(got, want, ("dists", "ids", "src")):
             check(torch.equal(g, w), f"merge_topk {what} at ({B}, {M}) k={k}")
+    return err
+
+
+def quantized_table(port, rng, rows: int, dim: int, precision: str, dev):
+    """A random (rows, dim) table quantized by the port's codec: the
+    payload and its scales (None for float16) on the card."""
+    X = rng.standard_normal((rows, dim)).astype(np.float32)
+    payload, scales = port["quant"].quantize_np(X, precision)
+    return (torch.from_numpy(payload).to(dev),
+            torch.from_numpy(scales).to(dev) if precision == "int8" else None)
+
+
+def check_dequant_kernels(port, shape: Shape, dev, rng) -> dict:
+    """The dequant kernel against its plain version, int8 and float16 ×
+    l2/ip/cos, at a hop's shape (32 queries × 32 ids over the tier-2
+    slab) and a fused bulk load's (1 × miss_cap over the whole payload),
+    in both forms."""
+    ops, ref = port["ops"], port["ref"]
+    err = {"dequant_gather_distance": 0.0,
+           "dequant_gather_distance_batch": 0.0}
+    for precision in QUANT:
+        for rows, B, K in ((shape.cache, shape.batch, shape.degree),
+                           (shape.n, 1, shape.miss_cap)):
+            table, scales = quantized_table(port, rng, rows, shape.dim,
+                                            precision, dev)
+            ids, Q = gd_inputs(rng, rows, shape, K, dev)
+            ids, Q = ids[:B].contiguous(), Q[:B].contiguous()
+            for metric in ("l2", "ip", "cos"):
+                what = f"{precision} {metric} ({B}, {K}) over {rows} rows"
+                got = ops.dequant_gather_distance_batch(table, scales, ids,
+                                                        Q, metric)
+                want = ref.dequant_gather_distance_batch_ref(
+                    table, scales, ids, Q, metric)
+                one = ops.dequant_gather_distance(table, scales, ids[0],
+                                                  Q[0], metric)
+                one_ref = ref.dequant_gather_distance_ref(
+                    table, scales, ids[0], Q[0], metric)
+                torch.cuda.synchronize()
+                pad = ids < 0
+                check(bool(torch.isinf(got[pad]).all()),
+                      f"padded ids give +inf: {what}")
+                check(torch.allclose(got, want, rtol=GD_RTOL, atol=GD_ATOL),
+                      f"dequant_gather_distance_batch {what}")
+                check(torch.allclose(one, one_ref, rtol=GD_RTOL,
+                                     atol=GD_ATOL),
+                      f"dequant_gather_distance {what}")
+                check(torch.equal(one, got[0]),
+                      f"single form = batched form: {what}")
+                fin = ~pad
+                err["dequant_gather_distance_batch"] = max(
+                    err["dequant_gather_distance_batch"],
+                    float((got[fin] - want[fin]).abs().max()))
+                err["dequant_gather_distance"] = max(
+                    err["dequant_gather_distance"],
+                    float((one[fin[0]] - one_ref[fin[0]]).abs().max()))
     return err
 
 
@@ -226,29 +305,33 @@ def make_queries(X: np.ndarray, n: int, seed: int) -> np.ndarray:
 
 
 REQUESTS = ("single", "batched", "loop")
+# what each request serves: the first query alone, or the batch in a mode
+# (a fused engine serves a batched request one fused query at a time)
+REQUEST_FORMS = {"single": (0, "batched"), "batched": (None, "batched"),
+                 "loop": (None, "loop"), "fused": (None, "batched")}
 
 
 def run_query_path(port, shape: Shape, device: str, X, graph, Q,
-                   requests=REQUESTS) -> dict:
-    """A single query, a batch in ``batched`` mode and the batch in
-    ``loop`` mode (those of them named in ``requests``), each on a fresh
-    engine on ``device``; launch counts per request. The checks are the
-    caller's."""
+                   requests=REQUESTS, precision: str = "float32",
+                   fused: bool = False) -> dict:
+    """The requests named in ``requests`` (a single query, a batch in
+    ``batched`` mode, the batch in ``loop`` mode, or the batch on a fused
+    engine), each on a fresh engine on ``device`` at ``precision``, with
+    the launch counts set to 0 just before and read just after; launch
+    counts per request. The checks are the caller's."""
     E, ops = port["engine"], port["ops"]
     cfg = E.EngineConfig(cache_capacity=shape.cache, ef_search=shape.ef,
-                         device=device)
+                         device=device, precision=precision, fused=fused)
     out = {"engines": {}, "launches": {}}
     ops.reset_launch_counts()
-    for name, query, mode in (("single", Q[0], "batched"),
-                              ("batched", Q, "batched"),
-                              ("loop", Q, "loop")):
-        if name not in requests:
-            continue
+    for name in requests:
+        first, mode = REQUEST_FORMS[name]
         before = ops.launch_counts()
         eng = E.WebANNSEngine(X, graph, cfg)
         t0 = time.perf_counter()
-        res = eng.search(E.SearchRequest(query=query, k=shape.k,
-                                         batch_mode=mode))
+        res = eng.search(E.SearchRequest(
+            query=Q if first is None else Q[first], k=shape.k,
+            batch_mode=mode))
         out[name] = res
         out["engines"][name] = eng
         out[name + "_s"] = time.perf_counter() - t0
@@ -258,12 +341,26 @@ def run_query_path(port, shape: Shape, device: str, X, graph, Q,
     return out
 
 
+def _agreement(a: np.ndarray, b: np.ndarray) -> float:
+    return float((np.asarray(a) == np.asarray(b)).mean())
+
+
+def check_results(port, shape: Shape, X, Q, res, what: str) -> float:
+    """Shape, finite distances, ids in range and recall@10 of a batch's
+    result; returns the recall."""
+    check(res.ids.shape == (shape.batch, shape.k), f"{what}: ids shape")
+    check(bool(np.isfinite(res.dists).all()), f"{what}: finite distances")
+    check(bool(((res.ids >= 0) & (res.ids < shape.n)).all()),
+          f"{what}: ids in range")
+    truth = port["brute_force_topk"](X, Q, shape.k)
+    recall = port["recall_at_k"](res.ids, truth)
+    check(recall >= 0.90, f"{what}: recall@10 {recall} >= 0.90")
+    return recall
+
+
 def check_query_path(port, shape: Shape, X, Q, run) -> dict:
     single, batched, loop = run["single"], run["batched"], run["loop"]
-    check(batched.ids.shape == (shape.batch, shape.k), "batched ids shape")
-    check(bool(np.isfinite(batched.dists).all()), "finite distances")
-    check(bool(((batched.ids >= 0) & (batched.ids < shape.n)).all()),
-          "ids in range")
+    recall = check_results(port, shape, X, Q, batched, "float32, batched")
     check(np.array_equal(batched.ids, loop.ids), "loop ids = batched ids")
     check(np.array_equal(batched.dists, loop.dists),
           "loop dists = batched dists")
@@ -272,14 +369,110 @@ def check_query_path(port, shape: Shape, X, Q, run) -> dict:
           "single query = first query of the loop")
     n_db_b, n_db_l = batched.batch_stats.n_db, loop.batch_stats.n_db
     check(n_db_b < n_db_l, f"batched n_db {n_db_b} < loop n_db {n_db_l}")
-    truth = port["brute_force_topk"](X, Q, shape.k)
-    recall = port["recall_at_k"](batched.ids, truth)
-    check(recall >= 0.90, f"recall@10 {recall} >= 0.90")
     return {"recall_at_10": recall, "n_db_batched": n_db_b,
             "n_db_loop": n_db_l,
             "items_fetched_batched": batched.batch_stats.items_fetched,
             "items_fetched_loop": loop.batch_stats.items_fetched,
             "n_phases_batched": batched.batch_stats.n_phases}
+
+
+def check_quantized_path(port, shape: Shape, X, Q, run, cpu,
+                         precision: str) -> dict:
+    """A quantized path on the card against the same path on the CPU."""
+    single, batched, loop = run["single"], run["batched"], run["loop"]
+    what = f"{precision} path"
+    out = {"recall_at_10": check_results(port, shape, X, Q, batched,
+                                         f"{what}, batched")}
+    out["recall_at_10_loop"] = check_results(port, shape, X, Q, loop,
+                                             f"{what}, loop")
+    check(single.ids.shape == (shape.k,)
+          and bool(np.isfinite(single.dists).all()), f"{what}: single")
+    out["loop_vs_batched"] = _agreement(loop.ids, batched.ids)
+    check(out["loop_vs_batched"] >= MIN_AGREEMENT,
+          f"{what}: loop ids agree with batched: {out['loop_vs_batched']}")
+    for name in REQUESTS:
+        a = _agreement(run[name].ids, cpu[name].ids)
+        out[f"cpu_agreement_{name}"] = a
+        check(a >= MIN_AGREEMENT,
+              f"{what}: {name} ids agree with the CPU engine: {a}")
+    conv = port["convert"]
+    on = conv.cache_to_numpy(run["engines"]["batched"].store.cache)
+    off = conv.cache_to_numpy(cpu["engines"]["batched"].store.cache)
+    for field in conv.CACHE_FIELDS:
+        check(on[field].dtype == off[field].dtype
+              and np.array_equal(on[field], off[field]),
+              f"{what}: tier-2 {field} after the batched search equals the "
+              "CPU engine's")
+    check(on["slab"].dtype == np.dtype(precision), f"{what}: slab dtype")
+    bs = batched.batch_stats
+    check(bs.n_db == bs.n_phases + 1,
+          f"{what}: one rerank access for the batch ({bs.n_db} accesses, "
+          f"{bs.n_phases} load phases)")
+    check(all(s.n_db >= 1 for s in batched.stats), f"{what}: per-query n_db")
+    for name, form in (("batched", "dequant_gather_distance_batch"),
+                       ("loop", "dequant_gather_distance"),
+                       ("single", "dequant_gather_distance")):
+        n = run["launches"][name][form]
+        check(n > 0, f"{what}: {form} launched in the {name} run ({n})")
+    out.update(n_db_batched=bs.n_db, n_db_loop=loop.batch_stats.n_db,
+               n_phases_batched=bs.n_phases,
+               items_fetched_batched=bs.items_fetched,
+               cache_bytes=run["engines"]["batched"].cache_bytes())
+    return out
+
+
+def check_fused_path(port, shape: Shape, X, Q, run, cpu, precision: str,
+                     loop32=None) -> dict:
+    """The fused driver at ``precision`` on the card: recall, the CPU
+    engine's ids, the kernels that served it; at float32 the host loop
+    driver's bits."""
+    res = run["fused"]
+    what = f"fused {precision}"
+    out = {"recall_at_10": check_results(port, shape, X, Q, res, what)}
+    out["cpu_agreement"] = _agreement(res.ids, cpu["fused"].ids)
+    check(out["cpu_agreement"] >= MIN_AGREEMENT,
+          f"{what}: ids agree with the CPU engine: {out['cpu_agreement']}")
+    n = run["launches"]["fused"]
+    form = ("gather_distance" if precision == "float32"
+            else "dequant_gather_distance")
+    check(n[form] > 0 and n["merge_topk"] > 0,
+          f"{what}: {form} and merge_topk launched ({n})")
+    if loop32 is not None:
+        check(np.array_equal(res.ids, loop32.ids)
+              and np.array_equal(res.dists, loop32.dists),
+              f"{what}: bits equal the float32 loop driver's")
+        check([s.n_db for s in res.stats] == [s.n_db for s in loop32.stats],
+              f"{what}: accesses equal the loop driver's")
+    out.update(n_db=res.batch_stats.n_db,
+               items_fetched=res.batch_stats.items_fetched)
+    return out
+
+
+def check_rerank_access(port, shape: Shape, X, graph, Q) -> dict:
+    """On a tier 2 holding the whole corpus no load phase happens, so the
+    exact rerank is the only tier-3 access: one for a single query (host
+    or fused driver) and one for a batch."""
+    E = port["engine"]
+    out = {}
+    for precision in QUANT:
+        for fused in (False, True):
+            eng = E.WebANNSEngine(X, graph, E.EngineConfig(
+                cache_capacity=shape.n, ef_search=shape.ef, device="cuda",
+                precision=precision, fused=fused))
+            eng.warm_cache()
+            one = eng.search(E.SearchRequest(query=Q[0], k=shape.k))
+            key = f"{precision}{'_fused' if fused else ''}"
+            check(one.stats.n_db == 1 and eng.access_stats.n_db == 1,
+                  f"{key}: a warm single query costs one rerank access")
+            out[key + "_single"] = one.stats.n_db
+            if fused:
+                continue
+            many = eng.search(E.SearchRequest(query=Q, k=shape.k))
+            check(many.batch_stats.n_db == 1
+                  and eng.access_stats.n_db == 2,
+                  f"{key}: a warm batch costs one rerank access")
+            out[key + "_batch"] = many.batch_stats.n_db
+    return out
 
 
 # ------------------------------------------------------------ phase 5
@@ -292,7 +485,7 @@ COLD_ROWS = 200_000
 COLD_CALLS = 100
 
 
-def time_kernels(port, shape: Shape, dev, rng, run, err) -> list:
+def time_kernels(port, shape: Shape, dev, rng, launches, err) -> list:
     ops, ref = port["ops"], port["ref"]
     d_, B, K = shape.dim, shape.batch, shape.degree
     gen = torch.Generator(device=dev)
@@ -322,7 +515,7 @@ def time_kernels(port, shape: Shape, dev, rng, run, err) -> list:
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/gather_distance.cu",
-            replaces=replaces, launches=run["launches_total"][name],
+            replaces=replaces, launches=launches[name],
             max_abs_err=err[name],
             ms=device_ms([lambda a=a: fn(big, *pick(*a)) for a in cold]),
             plain_ms=device_ms([lambda a=a: plain(big, *pick(*a))
@@ -353,7 +546,7 @@ def time_kernels(port, shape: Shape, dev, rng, run, err) -> list:
         name="merge_topk", route="cuda",
         source="src/repro_torch/csrc/merge_topk.cu",
         replaces="src/repro/kernels/topk.py:139",
-        launches=run["launches_total"]["merge_topk"],
+        launches=launches["merge_topk"],
         max_abs_err=err["merge_topk"],
         # its 24 KB of inputs sit in L2 here, as on the query path, where
         # the merge reads the candidate row the hop has just written
@@ -369,6 +562,77 @@ def time_kernels(port, shape: Shape, dev, rng, run, err) -> list:
     return rows
 
 
+def time_dequant_kernels(port, shape: Shape, dev, rng, launches,
+                         err) -> list:
+    """The dequant kernel's two forms at the path's shapes: the batched
+    form at a hop (32 queries × 32 ids), the single form at a fused bulk
+    load (1 × miss_cap). ``ms``, ``plain_ms`` and the bound are int8,
+    HBM-cold (100 calls, each drawing its ids afresh over a 200,000-row
+    table, 154 MB int8 and 307 MB float16, several times the 50 MB L2);
+    ``l2_ms`` repeats one call on a table the size the path reads (the
+    2,500-row slab, the 10,000-row payload), which stays in L2; the
+    ``f16_*`` keys are the same at float16."""
+    ops, ref = port["ops"], port["ref"]
+    d_ = shape.dim
+    rows = []
+    for name, replaces, B, K, path_rows in (
+            ("dequant_gather_distance_batch",
+             "src/repro/kernels/dequant_gather_distance.py:112",
+             shape.batch, shape.degree, shape.cache),
+            ("dequant_gather_distance",
+             "src/repro/kernels/dequant_gather_distance.py:49",
+             1, shape.miss_cap, shape.n)):
+        fn = getattr(ops, name)
+        plain = getattr(ref, name + "_ref")
+        if B == 1:
+            def pick(i, q):
+                return i[0], q[0]
+        else:
+            def pick(i, q):
+                return i, q
+        cold = [gd_inputs(rng, COLD_ROWS, shape, K, dev)
+                for _ in range(COLD_CALLS)]
+        ids, Q = gd_inputs(rng, path_rows, shape, K, dev)
+        row = dict(name=name, route="cuda",
+                   source="src/repro_torch/csrc/dequant_gather_distance.cu",
+                   replaces=replaces, launches=launches[name],
+                   max_abs_err=err[name], library_ms=None)
+        for precision in QUANT:
+            big, big_s = quantized_table(port, rng, COLD_ROWS, d_, precision,
+                                         dev)
+            tab, tab_s = quantized_table(port, rng, path_rows, d_, precision,
+                                         dev)
+            row_bytes = d_ + 4 if precision == "int8" else 2 * d_
+            # bytes: each distinct needed row, each query and each id read
+            # once, each dist written once; l2 does a dequant multiply, a
+            # sub, a mul and an add per element of every valid id
+            n_bytes = n_ops = 0.0
+            for c_ids, c_Q in cold:
+                i, q = pick(c_ids, c_Q)
+                valid = i[i >= 0]
+                n_rows = int(torch.unique(valid).numel())
+                n_bytes += (n_rows * row_bytes + (q.numel() // d_) * d_ * 4
+                            + i.numel() * 8)
+                n_ops += 4 * int(valid.numel()) * d_
+            t, by = bound_ms(n_bytes / COLD_CALLS, n_ops / COLD_CALLS)
+            prefix = "" if precision == "int8" else "f16_"
+            row.update({
+                prefix + "ms": device_ms(
+                    [lambda a=a: fn(big, big_s, *pick(*a)) for a in cold]),
+                prefix + "plain_ms": device_ms(
+                    [lambda a=a: plain(big, big_s, *pick(*a))
+                     for a in cold]),
+                prefix + "bound_ms": t, prefix + "bound_by": by,
+                prefix + "l2_ms": device_ms(
+                    [lambda: fn(tab, tab_s, *pick(ids, Q))] * COLD_CALLS),
+                prefix + "call_ms": call_ms(
+                    lambda: fn(tab, tab_s, *pick(ids, Q))),
+            })
+            del big, big_s
+        rows.append(row)
+    return rows
+
+
 def _latency(lat_s) -> dict:
     lat = np.asarray(lat_s) * 1e3
     return dict(n=len(lat), p50_ms=float(np.percentile(lat, 50)),
@@ -377,46 +641,71 @@ def _latency(lat_s) -> dict:
                 mean_ms=float(lat.mean()))
 
 
-def time_end_to_end(port, shape: Shape, X, run) -> dict:
-    """Latency of searches on the engines the query path left warm:
-    30 batches of 32 fresh queries (batched driver) and 128 single
-    queries, each timed on the host clock (results come back to the
-    host, so each search has finished when it returns). Tier 2 keeps
-    turning over: each batch brings new queries."""
+def _timed_searches(port, shape: Shape, X, eng, kind: str, n: int,
+                    seed: int):
+    """``n`` searches on ``eng`` (batches of 32 fresh queries, or single
+    queries), each timed on the host clock: results come back to the
+    host, so each search has finished when it returns. Returns the
+    latencies (s) and the tier-3 accesses they made."""
     E = port["engine"]
-    out = {}
-    eng = run["engines"]["batched"]
     lat, n_db = [], 0
-    for rep in range(31):
-        Qr = make_queries(X, shape.batch, seed=100 + rep)
-        t0 = time.perf_counter()
-        res = eng.search(E.SearchRequest(query=Qr, k=shape.k))
-        lat.append(time.perf_counter() - t0)
-        n_db += res.batch_stats.n_db if rep else 0
-    out["batched"] = _latency(lat[1:])  # the first one is a warm-up
-    out["batched"]["qps"] = shape.batch * 1e3 / out["batched"]["mean_ms"]
-    out["batched"]["n_db_per_query"] = n_db / (30 * shape.batch)
-    eng = run["engines"]["single"]
-    lat, n_db = [], 0
-    for j, q in enumerate(make_queries(X, 132, seed=200)):
+    if kind == "batched":
+        queries = [make_queries(X, shape.batch, seed=seed + i)
+                   for i in range(n)]
+    else:
+        queries = list(make_queries(X, n, seed=seed))
+    for q in queries:
         t0 = time.perf_counter()
         res = eng.search(E.SearchRequest(query=q, k=shape.k))
         lat.append(time.perf_counter() - t0)
-        n_db += res.stats.n_db if j >= 4 else 0
-    out["single"] = _latency(lat[4:])
-    out["single"]["qps"] = 1e3 / out["single"]["mean_ms"]
-    out["single"]["n_db_per_query"] = n_db / 128
+        n_db += (res.batch_stats.n_db if kind == "batched"
+                 else res.stats.n_db)
+    return lat, n_db
+
+
+def time_end_to_end(port, shape: Shape, X, engines: dict,
+                    n_batches: int = 20, n_single: int = 64) -> dict:
+    """Latency of each path's searches on the engine its query path left
+    warm. ``engines`` maps a path name to ``(kind, engine)``. After a
+    warm-up (one batch or four queries) each path is timed in two rounds
+    of half its searches, the paths in order and then in reverse, so a
+    drift of the host over the run falls on every path alike and the
+    two rounds' medians show the spread within this machine. Tier 2
+    keeps turning over: each round brings new queries."""
+    out = {name: {"lat": [], "n_db": 0, "round_p50_ms": []}
+           for name in engines}
+    for name, (kind, eng) in engines.items():
+        _timed_searches(port, shape, X, eng, kind,
+                        1 if kind == "batched" else 4, seed=90)
+    order = list(engines)
+    for rnd, names in enumerate((order, order[::-1])):
+        for name in names:
+            kind, eng = engines[name]
+            n = (n_batches if kind == "batched" else n_single) // 2
+            lat, n_db = _timed_searches(port, shape, X, eng, kind, n,
+                                        seed=100 + 1000 * rnd)
+            o = out[name]
+            o["lat"] += lat
+            o["n_db"] += n_db
+            o["round_p50_ms"].append(float(np.percentile(lat, 50)) * 1e3)
+    for name, (kind, eng) in engines.items():
+        o = out[name]
+        lat, n_db, rounds = o.pop("lat"), o.pop("n_db"), o.pop("round_p50_ms")
+        o.update(_latency(lat), round_p50_ms=rounds, kind=kind,
+                 cache_bytes=eng.cache_bytes())
+        per = shape.batch if kind == "batched" else 1
+        o["qps"] = per * 1e3 / o["mean_ms"]
+        o["n_db_per_query"] = n_db / (len(lat) * per)
     return out
 
 
-def profile_batched(port, shape: Shape, X, run) -> dict:
-    """One batched search under torch.profiler: the device's busy time
-    (the sum of its kernels, which run on one stream) against the wall
-    time, and where the kernel and host time go."""
+def profile_batched(port, shape: Shape, X, eng) -> dict:
+    """One batched search on ``eng`` under torch.profiler: the device's
+    busy time (the sum of its kernels, which run on one stream) against
+    the wall time, and where the kernel and host time go."""
     from torch.profiler import ProfilerActivity, profile
 
     E = port["engine"]
-    eng = run["engines"]["batched"]
     Qr = make_queries(X, shape.batch, seed=300)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -487,28 +776,86 @@ def main() -> int:
           f"{record['hnsw_build_s']:.1f} s, {graph.n_layers} layers",
           flush=True)
     Q = make_queries(X, shape.batch, seed=5)
+    # float32: each path below sets the counts to 0 just before it and
+    # reads them just after; `launches` sums those readings per kernel
     run = run_query_path(port, shape, "cuda", X, graph, Q)
-    for kname, n in run["launches_total"].items():
+    for kname in ("gather_distance", "gather_distance_batch", "merge_topk"):
+        n = run["launches_total"][kname]
         check(n > 0, f"kernel {kname} launched on the query path ({n})")
     record["query_path"] = check_query_path(port, shape, X, Q, run)
-    record["launches"] = run["launches"]
-    record["query_path_s"] = {r: run[r + "_s"] for r in REQUESTS}
+    record["launches"] = {"float32": run["launches"]}
+    record["query_path_s"] = {"float32": {r: run[r + "_s"]
+                                          for r in REQUESTS}}
+    launches = dict(run["launches_total"])
     cpu = run_query_path(port, shape, "cpu", X, graph, Q, ("batched",))
-    agree = float((cpu["batched"].ids == run["batched"].ids).mean())
+    agree = _agreement(cpu["batched"].ids, run["batched"].ids)
     check(agree >= 0.99, f"ids agree with the CPU engine: {agree}")
     record["query_path"]["cpu_agreement"] = agree
-    print(f"query path: {json.dumps(record['query_path'])}", flush=True)
-    print(f"launches per request: {json.dumps(run['launches'])}",
+    print(f"query path, float32: {json.dumps(record['query_path'])}",
+          flush=True)
+    runs = {"float32": run}
+    # the quantized tier 2 with its exact rerank
+    for precision in QUANT:
+        q_run = run_query_path(port, shape, "cuda", X, graph, Q,
+                               precision=precision)
+        q_cpu = run_query_path(port, shape, "cpu", X, graph, Q,
+                               precision=precision)
+        record[f"query_path_{precision}"] = check_quantized_path(
+            port, shape, X, Q, q_run, q_cpu, precision)
+        record["launches"][precision] = q_run["launches"]
+        record["query_path_s"][precision] = {r: q_run[r + "_s"]
+                                             for r in REQUESTS}
+        for kname, n in q_run["launches_total"].items():
+            launches[kname] += n
+        runs[precision] = q_run
+        print(f"query path, {precision}: "
+              f"{json.dumps(record[f'query_path_{precision}'])}", flush=True)
+    # the fused driver at every precision
+    for precision in PRECISIONS:
+        f_run = run_query_path(port, shape, "cuda", X, graph, Q, ("fused",),
+                               precision=precision, fused=True)
+        f_cpu = run_query_path(port, shape, "cpu", X, graph, Q, ("fused",),
+                               precision=precision, fused=True)
+        key = f"fused_{precision}"
+        record[key] = check_fused_path(
+            port, shape, X, Q, f_run, f_cpu, precision,
+            loop32=run["loop"] if precision == "float32" else None)
+        record["launches"][key] = f_run["launches"]
+        record["query_path_s"][key] = f_run["fused_s"]
+        for kname, n in f_run["launches_total"].items():
+            launches[kname] += n
+        runs[key] = f_run
+        print(f"query path, {key}: {json.dumps(record[key])}", flush=True)
+    for kname, n in launches.items():
+        check(n > 0, f"kernel {kname} launched on the query paths ({n})")
+    record["launches_total"] = launches
+    record["rerank_access"] = check_rerank_access(port, shape, X, graph, Q)
+    print(f"launches per path and request: {json.dumps(record['launches'])}",
           flush=True)
 
     # 5. times
-    rows = time_kernels(port, shape, dev, rng, run, err)
+    rows = time_kernels(port, shape, dev, rng, launches, err)
+    rows += time_dequant_kernels(port, shape, dev, rng, launches, err)
     record["kernels"] = rows
-    record["end_to_end"] = time_end_to_end(port, shape, X, run)
-    print(f"end to end: {json.dumps(record['end_to_end'])}", flush=True)
-    record["profile_batched"] = profile_batched(port, shape, X, run)
+    engines = {}
+    for precision in PRECISIONS:
+        r = runs[precision]["engines"]
+        engines[f"{precision}_batched"] = ("batched", r["batched"])
+        engines[f"{precision}_single"] = ("single", r["single"])
+        engines[f"fused_{precision}"] = (
+            "single", runs[f"fused_{precision}"]["engines"]["fused"])
+    e2e = time_end_to_end(port, shape, X, engines)
+    for name, o in e2e.items():
+        print(f"end to end, {name}: {json.dumps(o)}", flush=True)
+    record["end_to_end"] = e2e
+    record["profile_batched"] = {
+        p: profile_batched(port, shape, X, runs[p]["engines"]["batched"])
+        for p in ("float32", "int8")}
     print(f"profile, one batched search: "
           f"{json.dumps(record['profile_batched'])}", flush=True)
+    out_dir = ROOT / "build"  # git-ignored, beside the kernels' builds
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 
     print(f"record: {json.dumps(record)}")
     print(f"card: {device_line()}")

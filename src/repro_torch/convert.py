@@ -1,20 +1,27 @@
-"""Carry an index across from the JAX package: its arrays in, the port's
-graph and table out.
+"""Carry state across from the JAX package: its arrays in, the port's
+objects out (and the tier-2 cache back out as arrays).
 
 An HNSW index is plain arrays (the vectors, the padded neighbor lists,
-the levels and the entry state), so the two packages exchange it as
-NumPy arrays and nothing of ``repro`` is imported here. The parity tests
-build a graph once with the reference and feed the same arrays to both
-engines.
+the levels and the entry state), and so is a tier-2 cache (the slab at
+its precision, the int8 scales, the id↔slot maps, the clock and the LRU
+stamps), so the two packages exchange them as NumPy arrays and nothing
+of ``repro`` is imported here. The parity tests build a graph once with
+the reference and feed the same arrays to both engines, and start both
+from one tier 2. A quantized tier-3 payload is never carried across: the
+port quantizes the float32 table with its own codec.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core import quant
 from repro_torch.core.graph import HNSWGraph
+from repro_torch.core.store import CacheState
+from repro_torch.device import DeviceLike, resolve_device
 
 
 def from_reference(
@@ -50,3 +57,59 @@ def from_reference(
     )
     graph.validate()
     return graph, table
+
+
+CACHE_FIELDS = ("slab", "scales", "slot_of", "id_of", "clock", "last_used")
+
+
+def cache_from_reference(
+    slab: np.ndarray,  # (capacity, d) float32 / float16 / int8
+    scales: np.ndarray,  # (capacity,) float32 for int8, (0,) otherwise
+    slot_of: np.ndarray,  # (N,) int32
+    id_of: np.ndarray,  # (capacity,) int32
+    clock,  # () insertion cursor / LRU tick
+    last_used: np.ndarray,  # (capacity,) int32
+    device: DeviceLike = None,
+) -> CacheState:
+    """The port's :class:`CacheState` holding a reference cache's arrays
+    (as NumPy), bit for bit, on ``device``; ``ValueError`` if their
+    shapes or the slab dtype disagree."""
+    dev = resolve_device(device)
+    slab = np.asarray(slab)
+    precision = quant.precision_of(torch.from_numpy(slab[:0].copy()).dtype)
+    cap = slab.shape[0]
+    scales = np.asarray(scales, np.float32)
+    want_scales = (cap,) if precision == "int8" else (0,)
+    if slab.ndim != 2 or scales.shape != want_scales:
+        raise ValueError(
+            f"a {precision} slab {slab.shape} takes scales {want_scales}, "
+            f"got {scales.shape}"
+        )
+    id_of = np.asarray(id_of, np.int32)
+    last_used = np.asarray(last_used, np.int32)
+    if id_of.shape != (cap,) or last_used.shape != (cap,):
+        raise ValueError(
+            f"capacity {cap}, but id_of {id_of.shape} and last_used "
+            f"{last_used.shape}"
+        )
+
+    def up(a):
+        return torch.as_tensor(np.array(a, copy=True), device=dev)
+
+    return CacheState(
+        slab=up(slab), scales=up(scales),
+        slot_of=up(np.asarray(slot_of, np.int32)), id_of=up(id_of),
+        clock=torch.tensor(int(np.asarray(clock)), dtype=torch.int64,
+                           device=dev),
+        last_used=up(last_used),
+    )
+
+
+def cache_to_numpy(cache: CacheState) -> Dict[str, np.ndarray]:
+    """A copy of the port cache's arrays by :data:`CACHE_FIELDS` name, on
+    the host (the reference's dtypes: the clock as an int32 scalar). The
+    cache ops update in place, so the copy is what keeps a snapshot."""
+    out = {name: getattr(cache, name).cpu().numpy().copy()
+           for name in CACHE_FIELDS}
+    out["clock"] = np.int32(out["clock"])
+    return out

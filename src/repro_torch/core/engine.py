@@ -1,5 +1,5 @@
-"""WebANNS engine on PyTorch: public API + the host-driven phased-lazy
-query drivers (the port of ``repro.core.engine``, float32 slice).
+"""WebANNS engine on PyTorch: public API + the phased-lazy query drivers
+(the port of ``repro.core.engine``).
 
 The split is the paper's (§3.2, Fig. 5): the search phases run on the
 device (:mod:`repro_torch.core.search`, through the hand-written
@@ -11,14 +11,25 @@ between phases. Two drivers serve a batch (DESIGN.md §5):
   against one tier-2 snapshot, unions and deduplicates their miss lists,
   and satisfies them with ONE tier-3 access per phase for the batch.
 
+With ``fused=True`` (``webanns`` mode only) a single query runs the
+fused driver (:func:`repro_torch.core.search.lazy_knn_search_fused`):
+the tier-3 payload sits on the device at the session's precision and
+the load phases read it there; the tier-3 cost model is applied
+analytically. A batched request on a fused engine runs it once a query.
+
 Engine modes (paper §4.2 baselines): ``webanns`` (phased lazy loading)
 and ``webanns-base`` (eager: every expansion's misses fetched at once).
 
+``precision`` sets the tier-2 slab (float32, float16, or int8 with a
+per-row scale; DESIGN.md §7). A quantized search is followed by the
+exact rerank: the top ``k·rerank_alpha`` of the beam are re-fetched from
+tier 3 in ONE counted access (one a batch) and re-scored on the host in
+numpy, as the reference does.
+
 The engine runs on the card unless ``EngineConfig.device`` says
-``"cpu"``; without CUDA the default raises. Quantized precisions, the
-fused driver, sharding, metadata filters, mutation and persistence come
-with later slices of the port and raise ``NotImplementedError`` naming
-their ROADMAP item.
+``"cpu"``; without CUDA the default raises. PQ, sharding, metadata
+filters, mutation and persistence come with later slices of the port
+and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core import search as S
 from repro_torch.core.graph import HNSWGraph
 from repro_torch.core.hnsw import build_hnsw
@@ -48,6 +60,25 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: see ROADMAP.md queue A, '{item}'"
     )
+
+
+def _np_point_distance(
+    X: np.ndarray, q: np.ndarray, metric: str
+) -> np.ndarray:
+    """Host-side exact distances for the rerank pass (a copy of the
+    reference's numpy, so reranked distances equal its bits)."""
+    X = np.asarray(X, np.float32)
+    q = np.asarray(q, np.float32)
+    if metric == "l2":
+        diff = X - q[None, :]
+        return np.sum(diff * diff, axis=-1)
+    if metric == "ip":
+        return -(X @ q)
+    if metric == "cos":
+        xn = np.linalg.norm(X, axis=-1) + 1e-30
+        qn = np.linalg.norm(q) + 1e-30
+        return -(X @ q) / (xn * qn)
+    raise ValueError(metric)
 
 
 @dataclasses.dataclass
@@ -107,9 +138,16 @@ class EngineConfig:
     max_phases: int = 10000  # safety bound on lazy phase loop
     # None means "cuda" and raises without CUDA; "cpu" runs the plain path
     device: Optional[str] = None
-    # not in this slice: must keep their defaults
-    precision: str = "float32"
+    # fused=True runs single queries with the tier-3 payload on the device
+    # (webanns mode only)
     fused: bool = False
+    # tier-2 slab precision: 'float32' | 'float16' | 'int8' (aliases
+    # through quant.canonical_precision). Quantized modes rerank the top
+    # k·rerank_alpha exactly against tier 3; rerank_alpha <= 0 disables
+    # the rerank (quantized distances returned as they are)
+    precision: str = "float32"
+    rerank_alpha: float = 2.0
+    # not in this slice: must keep its default
     n_shards: int = 1
 
     def __post_init__(self) -> None:
@@ -118,12 +156,9 @@ class EngineConfig:
                 f"unknown engine mode {self.mode!r}: expected one of "
                 f"{ENGINE_MODES}"
             )
-        if self.precision != "float32":
-            raise _not_in_slice(f"precision={self.precision!r}",
-                                "Quantized precisions")
-        if self.fused:
-            raise _not_in_slice("the fused driver (fused=True)",
-                                "Fused driver")
+        self.precision = quant.canonical_precision(self.precision)
+        if self.precision == "pq":
+            raise quant.pq_not_ported()
         if self.n_shards != 1:
             raise _not_in_slice(f"n_shards={self.n_shards}", "Sharded driver")
 
@@ -182,12 +217,17 @@ class WebANNSEngine:
             )
         cap = self.config.cache_capacity or self.n
         self.store = TieredStore(
-            self.external, cap, self.config.eviction, device=self.device
+            self.external, cap, self.config.eviction, device=self.device,
+            precision=self.config.precision,
         )
         self.neighbors = torch.as_tensor(
             np.asarray(graph.neighbors, np.int32), device=self.device
         )
         self.last_batch_stats: Optional[BatchStats] = None
+        # the fused driver's device-resident tier-3 payload and its int8
+        # scales, made at its first query
+        self._payload: Optional[Tuple[torch.Tensor,
+                                      Optional[torch.Tensor]]] = None
 
     @classmethod
     def build(
@@ -232,6 +272,16 @@ class WebANNSEngine:
         if warm:
             self.warm_cache()
 
+    def resize_cache_bytes(self, budget_bytes: int, warm: bool = False) -> int:
+        """Resize tier 2 to the largest capacity fitting ``budget_bytes``
+        at the session's precision (DESIGN.md §7). Returns the item
+        capacity applied."""
+        cap = quant.capacity_for_budget(
+            int(budget_bytes), self.dim, self.config.precision)
+        cap = min(cap, self.n)
+        self.resize_cache(cap, warm=warm)
+        return cap
+
     @property
     def access_stats(self) -> AccessStats:
         """The live tier-3 counters."""
@@ -245,8 +295,63 @@ class WebANNSEngine:
             self.store.warm(ids)
 
     def cache_bytes(self) -> int:
-        """Resident tier-2 bytes."""
+        """Resident tier-2 bytes at the configured precision."""
         return self.store.cache_bytes()
+
+    # -------------------------------------------------------- exact rerank
+
+    def _rerank_active(self) -> bool:
+        cfg = self.config
+        return cfg.precision != "float32" and cfg.rerank_alpha > 0
+
+    def _rerank_exact(
+        self, q: np.ndarray, ids: np.ndarray, dists: np.ndarray, k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact rerank (DESIGN.md §7): re-fetch the candidate pool from
+        tier 3 in ONE counted access, bypassing the quantized cache, and
+        re-score it exactly; a stable sort keeps ties in pool order."""
+        ids = np.asarray(ids)
+        dists = np.asarray(dists)
+        valid = ids >= 0
+        if not valid.any():
+            return ids[:k], dists[:k]
+        fetched = self.external.fetch(ids[valid])
+        self.external.mark_used_ids(ids[valid])
+        exact = np.full(ids.shape, np.inf, np.float32)
+        exact[valid] = _np_point_distance(fetched, q, self.config.metric)
+        order = np.argsort(exact, kind="stable")
+        return ids[order][:k], exact[order][:k]
+
+    def _rerank_exact_batch(
+        self, Q: np.ndarray, ids: np.ndarray, dists: np.ndarray, k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched exact rerank: the B pools are unioned and deduplicated
+        so the whole batch pays ONE tier-3 access (DESIGN.md §5)."""
+        ids = np.asarray(ids)
+        dists = np.asarray(dists)
+        B, m = ids.shape
+        valid = ids >= 0
+        if not valid.any():
+            return ids[:, :k], dists[:, :k]
+        union = np.unique(ids[valid])  # sorted — searchsorted below
+        fetched = self.external.fetch(union)
+        self.external.mark_used_ids(union)
+        exact = np.full((B, m), np.inf, np.float32)
+        # rows/qidx are in ids[valid]'s row-major order, so per-row
+        # distances scatter back through one flat buffer
+        rows = fetched[np.searchsorted(union, ids[valid])]
+        qidx = np.broadcast_to(np.arange(B)[:, None], (B, m))[valid]
+        flat = np.empty(rows.shape[0], np.float32)
+        for b in range(B):
+            sel = qidx == b
+            if sel.any():
+                flat[sel] = _np_point_distance(
+                    rows[sel], Q[b], self.config.metric
+                )
+        exact[valid] = flat
+        order = np.argsort(exact, axis=1, kind="stable")
+        return (np.take_along_axis(ids, order, 1)[:, :k],
+                np.take_along_axis(exact, order, 1)[:, :k])
 
     # ------------------------------------------------------------- query
 
@@ -354,12 +459,69 @@ class WebANNSEngine:
             bstats.t_in_mem += self._clock() - t0
         return states
 
+    def _fused_payload(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The tier-3 payload on the device at the session's precision
+        (quantized by the port's own codec; int8 with its scales), read
+        from the storage medium once, uncounted, as an init-stage load."""
+        if self._payload is None:
+            X = self.external.base_backend.fetch(np.arange(self.n))
+            payload, scales = quant.quantize_np(X, self.config.precision)
+            self._payload = (
+                torch.as_tensor(payload, device=self.device),
+                torch.as_tensor(scales, device=self.device)
+                if payload.dtype == np.int8 else None,
+            )
+        return self._payload
+
+    def _query_fused(
+        self, q: np.ndarray, k: int, ef: int,
+    ) -> Tuple[np.ndarray, np.ndarray, QueryStats]:
+        """Fused driver body: the whole query on the device-resident
+        payload, the tier-3 cost model applied analytically, then the
+        exact rerank of a quantized session from tier 3 on the host."""
+        cfg = self.config
+        stats = QueryStats()
+        payload, scales = self._fused_payload()
+        # quantized modes: run the search for the rerank POOL so the
+        # host-side exact pass has k·α candidates to re-score
+        k_run = k
+        if self._rerank_active():
+            k_run = min(max(ef, k), quant.rerank_pool(k, cfg.rerank_alpha))
+        t0 = self._clock()
+        dists, ids, (n_db, n_fetch), cache = S.lazy_knn_search_fused(
+            torch.as_tensor(np.asarray(q, np.float32), device=self.device),
+            payload, scales, self.neighbors, self.graph.entry_point,
+            self.store.cache, k=k_run, ef=ef, metric=cfg.metric,
+            eviction=self.store.eviction,
+        )
+        ids_np, dists_np = ids.cpu().numpy(), dists.cpu().numpy()
+        stats.t_in_mem = time.perf_counter() - t0
+        self.store.cache = cache
+        stats.n_db = n_db
+        stats.items_fetched = n_fetch
+        stats.t_db = n_db * cfg.t_setup + n_fetch * cfg.t_per_item
+        ext = self.external.stats
+        ext.n_db += n_db
+        ext.items_fetched += n_fetch
+        ext.items_used += n_fetch  # lazy loading fetches only demanded ids
+        ext.modeled_time += stats.t_db
+        stats.n_visited = n_fetch  # a lower bound: hits are not counted
+        if self._rerank_active():
+            db0, f0, m0 = ext.n_db, ext.items_fetched, ext.modeled_time
+            ids_np, dists_np = self._rerank_exact(q, ids_np, dists_np, k)
+            stats.n_db += ext.n_db - db0
+            stats.items_fetched += ext.items_fetched - f0
+            stats.t_db += ext.modeled_time - m0
+        return ids_np, dists_np, stats
+
     def _search_one(
         self, q: np.ndarray, k: int, ef: Optional[int],
     ) -> Tuple[np.ndarray, np.ndarray, QueryStats]:
         """Single-query driver body. Returns (ids, dists, stats)."""
         cfg = self.config
         ef = ef or cfg.ef_search
+        if cfg.fused and cfg.mode == "webanns":
+            return self._query_fused(q, k, ef)
         eager = cfg.mode == "webanns-base"
         stats = QueryStats()
         qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
@@ -376,8 +538,19 @@ class WebANNSEngine:
         stats.n_hops += int(st.n_hops)
         stats.n_dist += int(st.n_dist)
         stats.n_visited = stats.n_dist  # every visited id gets a distance
-        ids = st.beam.ids[:k].cpu().numpy()
-        dists = st.beam.dists[:k].cpu().numpy()
+        if self._rerank_active():
+            pool = min(st.beam.ef, quant.rerank_pool(k, cfg.rerank_alpha))
+            db0 = self.external.stats.n_db
+            f0 = self.external.stats.items_fetched
+            ids, dists = self._rerank_exact(
+                q, st.beam.ids[:pool].cpu().numpy(),
+                st.beam.dists[:pool].cpu().numpy(), k,
+            )
+            stats.n_db += self.external.stats.n_db - db0
+            stats.items_fetched += self.external.stats.items_fetched - f0
+        else:
+            ids = st.beam.ids[:k].cpu().numpy()
+            dists = st.beam.dists[:k].cpu().numpy()
         stats.t_db = self.external.stats.modeled_time - t_db0
         return ids, dists, stats
 
@@ -391,6 +564,10 @@ class WebANNSEngine:
         ef = ef or cfg.ef_search
         Q = np.asarray(Q, dtype=np.float32)
         B = len(Q)
+        # a fused engine runs its batch once a query (there is no fused
+        # batch driver), as the reference does
+        if cfg.fused and cfg.mode == "webanns" and batch_mode == "batched":
+            batch_mode = "loop"
         if batch_mode == "loop":
             out_i, out_d, out_s = [], [], []
             for q in Q:
@@ -434,8 +611,22 @@ class WebANNSEngine:
         )
         hops = st.n_hops.cpu().numpy()
         ndist = st.n_dist.cpu().numpy()
-        ids = st.beam.ids[:, :k].cpu().numpy()
-        dists = st.beam.dists[:, :k].cpu().numpy()
+        if self._rerank_active():
+            # ONE shared tier-3 access reranks the whole batch
+            pool = min(st.beam.ef, quant.rerank_pool(k, cfg.rerank_alpha))
+            db0 = self.external.stats.n_db
+            f0 = self.external.stats.items_fetched
+            ids, dists = self._rerank_exact_batch(
+                Q, st.beam.ids[:, :pool].cpu().numpy(),
+                st.beam.dists[:, :pool].cpu().numpy(), k,
+            )
+            bstats.n_db += self.external.stats.n_db - db0
+            bstats.items_fetched += self.external.stats.items_fetched - f0
+            for b in range(B):  # every query demanded the shared rerank
+                per_stats[b].n_db += 1
+        else:
+            ids = st.beam.ids[:, :k].cpu().numpy()
+            dists = st.beam.dists[:, :k].cpu().numpy()
         bstats.t_db = self.external.stats.modeled_time - t_db0
         for b in range(B):
             per_stats[b].n_hops += int(hops[b])

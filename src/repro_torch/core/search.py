@@ -20,11 +20,17 @@ vmaps a ``lax.while_loop``, :func:`batch_search_phase` loops while any
 query is active and leaves a finished query's state untouched, counters
 included — what vmap's masking does.
 
-The two kernels of the path carry the work: the distances of every hop
-and of every load phase come from ``ops.gather_distance(_batch)`` over the
+The kernels of the path carry the work: the distances of every hop and
+of every load phase come from ``ops.gather_distance(_batch)`` over the
 rows where they already live (the tier-2 slab during a phase, the
-fetched rows during a load), and the beam merge is ``ops.merge_topk``,
-whose ``src`` output carries the ``explored`` flags through the merge.
+fetched rows during a load) — or from ``ops.dequant_gather_distance
+(_batch)`` where those rows are an int8 or float16 slab or payload — and
+the beam merge is ``ops.merge_topk``, whose ``src`` output carries the
+``explored`` flags through the merge.
+
+The fused driver (:func:`lazy_knn_search_fused`) runs the same phases
+with the tier-3 payload resident on the device: a load phase reads its
+rows from that payload through the kernels instead of a host fetch.
 Filters (``banned``) and tombstones come with later slices of the port.
 """
 
@@ -35,8 +41,9 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core.graph import PAD
-from repro_torch.core.store import CacheState, cache_slots
+from repro_torch.core.store import CacheState, cache_insert, cache_slots
 from repro_torch.kernels import ops
 
 INF = float("inf")
@@ -73,15 +80,18 @@ class SearchState:
 @dataclasses.dataclass
 class Tier2:
     """Where a search reads resident rows: ``table`` rows, addressed by
-    ``slots(ids) -> (present, slot)``."""
+    ``slots(ids) -> (present, slot)``; an int8 ``table`` carries its
+    per-row ``scales``."""
 
-    table: torch.Tensor  # (R, d) float32
+    table: torch.Tensor  # (R, d) float32 / float16 / int8
     slots: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+    scales: Optional[torch.Tensor] = None  # (R,) float32 for int8
 
 
 def cache_tier2(cache: CacheState) -> Tier2:
     """Tier 2 as the cache slab: a present id's row is its slot."""
-    return Tier2(cache.slab, lambda ids: cache_slots(cache, ids))
+    return Tier2(cache.slab, lambda ids: cache_slots(cache, ids),
+                 cache.row_scales())
 
 
 def resident_tier2(vectors: torch.Tensor) -> Tier2:
@@ -92,15 +102,23 @@ def resident_tier2(vectors: torch.Tensor) -> Tier2:
 
 def _distances(
     table: torch.Tensor, ids: torch.Tensor, Q: torch.Tensor, metric: str,
+    scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, K) distances of ``table[ids[b]]`` to ``Q[b]``, +inf for ids < 0.
 
-    One query (the loop driver) goes through the single-query form of the
-    kernel, a batch through the batched form; the two are one kernel, so
-    they give identical bits."""
+    A float32 table goes to the gather-distance kernel, an int8 (with its
+    ``scales``) or float16 one to the dequant-gather-distance kernel. One
+    query (the loop and fused drivers) goes through the single-query form
+    of the kernel, a batch through the batched form; the two are one
+    kernel, so they give identical bits."""
+    if table.dtype == torch.float32:
+        if Q.shape[0] == 1:
+            return ops.gather_distance(table, ids[0], Q[0], metric)[None]
+        return ops.gather_distance_batch(table, ids, Q, metric)
     if Q.shape[0] == 1:
-        return ops.gather_distance(table, ids[0], Q[0], metric)[None]
-    return ops.gather_distance_batch(table, ids, Q, metric)
+        return ops.dequant_gather_distance(
+            table, scales, ids[0], Q[0], metric)[None]
+    return ops.dequant_gather_distance_batch(table, scales, ids, Q, metric)
 
 
 def beam_init(ef: int, device: torch.device) -> Beam:
@@ -211,7 +229,8 @@ def batch_seed_state(
     present, slots = tier2.slots(entry_ids)
     usable = valid & present
     dists = _distances(
-        tier2.table, torch.where(usable, slots, -1).to(torch.int32), Q, metric
+        tier2.table, torch.where(usable, slots, -1).to(torch.int32), Q,
+        metric, tier2.scales,
     )
     beam = beam_merge(states.beam, entry_ids, dists, usable)
     visited = states.visited.scatter(
@@ -266,7 +285,7 @@ def batch_search_phase(
         usable = fresh & present
         dists = _distances(
             tier2.table, torch.where(usable, slots, -1).to(torch.int32),
-            Q, metric,
+            Q, metric, tier2.scales,
         )
         merged = beam_merge(beam, nbrs, dists, usable)
         s = dataclasses.replace(
@@ -283,16 +302,20 @@ def batch_load_phase(
     Q: torch.Tensor,  # (B, d)
     states: SearchState,
     loaded_ids: torch.Tensor,  # (B, miss_cap) int32, -1 padded
-    table: torch.Tensor,  # (R, d) float32 — the bulk-loaded rows
+    table: torch.Tensor,  # (R, d) — the bulk-loaded rows
     rows: torch.Tensor,  # (B, miss_cap) int32 — row of each id, -1 padded
     metric: str,
+    scales: Optional[torch.Tensor] = None,  # (R,) for an int8 table
 ) -> SearchState:
     """Merge bulk-loaded rows into each beam (Alg. 1 lines 25–31) and
     clear L. The driver has already inserted them into tier 2. A query
-    that missed nothing passes all -1 rows and is left unchanged."""
+    that missed nothing passes all -1 rows and is left unchanged.
+    ``table`` is the fetched float32 rows (host drivers) or the device-
+    resident tier-3 payload at any precision (fused driver)."""
     valid = loaded_ids >= 0
     dists = _distances(
-        table, torch.where(valid, rows, -1).to(torch.int32), Q, metric
+        table, torch.where(valid, rows, -1).to(torch.int32), Q, metric,
+        scales,
     )
     beam = beam_merge(states.beam, loaded_ids, dists, valid)
     return dataclasses.replace(
@@ -371,10 +394,98 @@ def search_phase(
 def load_phase(
     q: torch.Tensor, state: SearchState, loaded_ids: torch.Tensor,
     table: torch.Tensor, rows: torch.Tensor, metric: str,
+    scales: Optional[torch.Tensor] = None,
 ) -> SearchState:
     return _first(batch_load_phase(
-        q[None], _one(state), loaded_ids[None], table, rows[None], metric
+        q[None], _one(state), loaded_ids[None], table, rows[None], metric,
+        scales,
     ))
+
+
+# ------------------------------------------------------ fused lazy search
+
+
+def search_layer_lazy_fused(
+    q: torch.Tensor,  # (d,) float32
+    neighbors_l: torch.Tensor,  # (N, deg) int32, PAD padded
+    payload: torch.Tensor,  # (N, d) tier-3 payload on the device
+    payload_scales: Optional[torch.Tensor],  # (N,) for an int8 payload
+    cache: CacheState,
+    entry_ids: torch.Tensor,  # (k,) int32, -1 padded
+    ef: int,
+    metric: str,
+    eviction: int = 0,
+    max_phases: int = 256,
+) -> Tuple[SearchState, CacheState, int, int]:
+    """One layer of Algorithm 1 with the tier-3 payload on the device
+    (the port of ``repro.core.search.search_layer_lazy_fused``).
+
+    Phases alternate as in the host driver, but a load phase reads the
+    miss list ``L`` from ``payload`` instead of fetching it: its
+    distances come from the kernel over the payload with the miss ids as
+    rows (``gather_distance`` at float32, ``dequant_gather_distance`` at
+    float16 and int8), and the dequantized rows go into tier 2. The
+    insert runs after every phase, an empty one too (it moves the LRU
+    clock, as the reference's does), and nothing is touched: the
+    reference's fused program has no LRU touch. Returns ``(state, cache,
+    n_db, n_fetched)``: one access for each phase that missed.
+    """
+    n = neighbors_l.shape[0]
+    miss_cap = ef + neighbors_l.shape[1] + 1
+    state = make_state(ef, miss_cap, n, q.device)
+    state = seed_state(state, q, entry_ids, cache_tier2(cache), metric)
+    n_db = n_fetch = 0
+    for _ in range(max_phases):
+        state = search_phase(
+            q, neighbors_l, state, cache_tier2(cache), metric, ef_trigger=ef
+        )
+        mc = int(state.miss_count)
+        ids = state.miss_ids
+        safe = ids.long().clamp(0, n - 1)
+        scales = None if payload_scales is None else payload_scales[safe]
+        rows = quant.dequantize(payload[safe], scales)
+        cache = cache_insert(cache, ids, rows, policy=eviction)
+        # the miss ids are the payload's rows
+        state = load_phase(q, state, ids, payload, ids, metric,
+                           payload_scales)
+        n_db += int(mc > 0)
+        n_fetch += mc
+        if mc == 0:
+            break
+    return state, cache, n_db, n_fetch
+
+
+def lazy_knn_search_fused(
+    q: torch.Tensor,  # (d,) float32
+    payload: torch.Tensor,  # (N, d) tier-3 payload (quantized if scaled)
+    payload_scales: Optional[torch.Tensor],
+    neighbors: torch.Tensor,  # (L, N, deg)
+    entry: int,
+    cache: CacheState,
+    k: int,
+    ef: int,
+    metric: str = "l2",
+    eviction: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, int], CacheState]:
+    """Whole lazy KNN query, all layers, on the device-resident payload:
+    ``(dists (k,), ids (k,), (n_db, n_fetched), cache)``. Upper layers
+    descend greedily (ef = 1), as the reference's fused program does."""
+    n_db = n_fetch = 0
+    entry_ids = torch.full((1,), int(entry), dtype=torch.int32,
+                           device=q.device)
+    for lc in range(neighbors.shape[0] - 1, 0, -1):
+        st, cache, db, fc = search_layer_lazy_fused(
+            q, neighbors[lc], payload, payload_scales, cache, entry_ids, 1,
+            metric, eviction=eviction,
+        )
+        n_db, n_fetch = n_db + db, n_fetch + fc
+        entry_ids = st.beam.ids[:1]
+    st, cache, db, fc = search_layer_lazy_fused(
+        q, neighbors[0], payload, payload_scales, cache, entry_ids,
+        max(ef, k), metric, eviction=eviction,
+    )
+    return (st.beam.dists[:k], st.beam.ids[:k], (n_db + db, n_fetch + fc),
+            cache)
 
 
 # ------------------------------------------------------- in-memory oracle

@@ -1,11 +1,14 @@
 """Three-tier data management (paper §3.2) on the port's device.
 
-Tier 2 is :class:`CacheState`: a fixed-capacity float32 slab on the
-engine's device plus an id→slot map, with FIFO (the paper's prototype)
-or LRU eviction. The lazy search computes tier-2 distances straight from
-the slab — :func:`cache_slots` maps ids to slots and the fused
-gather-distance kernel reads the rows there — so a cached row never
-leaves the slab during a search.
+Tier 2 is :class:`CacheState`: a fixed-capacity slab on the engine's
+device plus an id→slot map, with FIFO (the paper's prototype) or LRU
+eviction. The slab holds float32, float16 or int8 rows with one float32
+scale each (the ``precision`` knob, DESIGN.md §7): inserts quantize
+through :mod:`repro_torch.core.quant`, lookups dequantize. The lazy
+search computes tier-2 distances straight from the slab —
+:func:`cache_slots` maps ids to slots and the fused (dequant-)gather-
+distance kernel reads the rows there — so a cached row never leaves the
+slab during a search.
 
 Tier 3 is :class:`ExternalStore`: exact access counters and the cost
 model ``t_access = t_setup + n_items * t_per_item`` (paper Fig. 3b) over
@@ -24,8 +27,8 @@ behaviour-preserving:
   :meth:`TieredStore.gather_batch` returns the deduplicated union rows
   and per-query positions into them instead of a (B, k, d) copy.
 
-Float32 only; the quantized precisions and invalidation for the mutation
-lifecycle come in later slices of the port (ROADMAP A.7, A.8).
+``"pq"`` slabs and invalidation for the mutation lifecycle come in
+later slices of the port (ROADMAP A.3, A.5).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core.storage import (
     InMemoryBackend,
     LatencyModel,
@@ -53,9 +57,14 @@ _EVICTION_NAMES = {"fifo": EVICT_FIFO, "lru": EVICT_LRU}
 
 @dataclasses.dataclass
 class CacheState:
-    """Tier-2 cache: float32 slab + id→slot map, all on one device."""
+    """Tier-2 cache: slab + id→slot map, all on one device.
 
-    slab: torch.Tensor  # (capacity, d) float32
+    ``slab`` holds the rows at the cache's precision (its dtype); an int8
+    slab carries one float32 dequantization scale a row in ``scales``,
+    the other precisions a (0,) tensor, as the reference does."""
+
+    slab: torch.Tensor  # (capacity, d) float32 / float16 / int8
+    scales: torch.Tensor  # (capacity,) float32 if int8, else (0,)
     slot_of: torch.Tensor  # (N,) int32 — slot of id, -1 if absent
     id_of: torch.Tensor  # (capacity,) int32 — id in slot, -1 if empty
     clock: torch.Tensor  # () int64 — insertion cursor (FIFO) / tick (LRU)
@@ -67,21 +76,30 @@ class CacheState:
 
     @property
     def precision(self) -> str:
-        return "float32"
+        return quant.precision_of(self.slab.dtype)
 
     def nbytes(self) -> int:
-        """Resident tier-2 payload bytes."""
+        """Resident tier-2 payload bytes (slab + scales when int8)."""
         cap, dim = self.slab.shape
-        return int(cap) * int(dim) * 4
+        return int(cap) * quant.bytes_per_vector(int(dim), self.precision)
+
+    def row_scales(self):
+        """The scales a distance kernel takes: ``scales`` for int8, None
+        for the float precisions."""
+        return self.scales if self.slab.dtype == torch.int8 else None
 
 
 def cache_init(
     n_items: int, capacity: int, dim: int, device: DeviceLike = None,
+    precision: str = "float32",
 ) -> CacheState:
     capacity = int(max(1, capacity))
     dev = resolve_device(device)
+    dtype = quant.slab_dtype(precision)  # raises for "pq"
+    n_scales = capacity if dtype == torch.int8 else 0
     return CacheState(
-        slab=torch.zeros((capacity, dim), dtype=torch.float32, device=dev),
+        slab=torch.zeros((capacity, dim), dtype=dtype, device=dev),
+        scales=torch.ones((n_scales,), dtype=torch.float32, device=dev),
         slot_of=torch.full((n_items,), -1, dtype=torch.int32, device=dev),
         id_of=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
         clock=torch.zeros((), dtype=torch.int64, device=dev),
@@ -106,10 +124,14 @@ def cache_slots(
 def cache_lookup(
     cache: CacheState, ids: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Membership + gather: (present, vectors (..., d) — garbage rows where
-    absent)."""
+    """Membership + gather: (present, float32 vectors (..., d) — garbage
+    rows where absent). int8 rows are dequantized against their scale,
+    float16 rows widened."""
     present, slots = cache_slots(cache, ids)
-    return present, cache.slab[slots]
+    vecs = cache.slab[slots]
+    if vecs.dtype == torch.int8:
+        return present, quant.dequantize(vecs, cache.scales[slots])
+    return present, vecs.to(torch.float32)
 
 
 def cache_lookup_batch(
@@ -142,7 +164,8 @@ def cache_insert(
     policy: int = EVICT_FIFO,
 ) -> CacheState:
     """Insert a fetched batch, evicting per ``policy``; updates ``cache``
-    in place and returns it.
+    in place and returns it. ``vecs`` arrive float32 and are quantized to
+    the slab's precision on the way in.
 
     FIFO: slots are a ring buffer advanced by the insert cursor. LRU:
     each insert claims the least-recently-used slot (a stable ascending
@@ -150,7 +173,8 @@ def cache_insert(
     order in the reference). Overflow contract: when one batch exceeds
     capacity, rows recycle slots and all but the LAST row targeting a
     slot are dropped ("keep-newest"), chosen by a scatter-max so the
-    result never depends on scatter order. Ids are assumed unique
+    result never depends on scatter order; an int8 row's scale is written
+    through the same winner as its payload. Ids are assumed unique
     within a batch.
     """
     ids = ids.reshape(-1).to(torch.int32)
@@ -184,7 +208,10 @@ def cache_insert(
     cache.slot_of[evicted[evicted >= 0]] = -1
     new_ids = ids[rows]
     cache.slot_of[new_ids.long()] = s.to(torch.int32)
-    cache.slab[s] = vecs[rows].to(cache.slab.dtype)
+    payload, row_scales = quant.quantize(vecs[rows], cache.precision)
+    cache.slab[s] = payload
+    if cache.slab.dtype == torch.int8:
+        cache.scales[s] = row_scales
     cache.id_of[s] = new_ids
     cache.last_used[s] = new_clock.to(torch.int32)
     cache.clock = new_clock
@@ -306,9 +333,9 @@ class TieredStore:
     """Tier 2 (device slab) + tier 3 (host backend) used by the engine.
 
     ``gather(ids)``: look up tier 2; fetch only the misses from tier 3 in
-    ONE access; insert them into tier 2; return all rows on the device.
-    This is the bulk phase-2 load of the lazy search (Algorithm 1 line
-    24).
+    ONE access; insert them into tier 2 (quantized at ``precision``);
+    return all rows on the device as float32. This is the bulk phase-2
+    load of the lazy search (Algorithm 1 line 24).
     """
 
     def __init__(
@@ -317,12 +344,15 @@ class TieredStore:
         capacity: int,
         eviction: str = "fifo",
         device: DeviceLike = None,
+        precision: str = "float32",
     ):
         self.external = external
         self.eviction = _EVICTION_NAMES[eviction]
         self.device = resolve_device(device)
+        self.precision = quant.canonical_precision(precision)
         self.cache = cache_init(
-            external.n_items, capacity, external.dim, self.device
+            external.n_items, capacity, external.dim, self.device,
+            self.precision,
         )
         self.hits = 0
         self.misses = 0
@@ -332,13 +362,14 @@ class TieredStore:
         return self.cache.capacity
 
     def cache_bytes(self) -> int:
-        """Resident tier-2 payload bytes."""
+        """Resident tier-2 payload bytes at the current precision."""
         return self.cache.nbytes()
 
     def resize(self, capacity: int) -> None:
         """Re-initialize tier 2 with a new capacity (cache-size optimizer)."""
         self.cache = cache_init(
-            self.external.n_items, capacity, self.external.dim, self.device
+            self.external.n_items, capacity, self.external.dim, self.device,
+            self.precision,
         )
         self.hits = 0
         self.misses = 0
@@ -350,13 +381,15 @@ class TieredStore:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     def gather(self, ids: np.ndarray) -> torch.Tensor:
-        """Bulk gather with single-access miss fill: ``(k, d)`` device rows
-        of ``ids`` ((k,), no padding)."""
+        """Bulk gather with single-access miss fill: ``(k, d)`` float32
+        device rows of ``ids`` ((k,), no padding). A hit is its
+        dequantized slab row, a miss the full-precision fetched row (the
+        reference's rows, ``store.py:586-615``)."""
         ids = np.asarray(ids, dtype=np.int32)
         ids_t = self._upload(ids)
-        present, slots = cache_slots(self.cache, ids_t)
-        # read the hits before the insert below can evict their slots
-        rows = self.cache.slab[slots]
+        # read (and dequantize) the hits before the insert below can
+        # evict their slots
+        present, rows = cache_lookup(self.cache, ids_t)
         present_np = present.cpu().numpy()
         n_miss = int((~present_np).sum())
         self.hits += int(present_np.sum())

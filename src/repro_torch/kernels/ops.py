@@ -8,10 +8,11 @@ other: the device of the inputs alone decides.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import dequant_gather_distance as _dq
 from repro_torch.kernels import gather_distance as _gd
 from repro_torch.kernels import ref
 from repro_torch.kernels import topk as _topk
@@ -47,6 +48,30 @@ def gather_distance(
     return ref.gather_distance_ref(table, ids, q, metric)
 
 
+def dequant_gather_distance_batch(
+    table: torch.Tensor, scales: Optional[torch.Tensor], ids: torch.Tensor,
+    Q: torch.Tensor, metric: str = "l2",
+) -> torch.Tensor:
+    """(B, K) ids × (B, d) queries → (B, K) distances to the dequantized
+    rows of an int8 (with ``scales``) or float16 (``scales=None``)
+    ``table``, +inf for ids < 0."""
+    if _on_cuda(table):
+        return _dq.dequant_gather_distance_batch_cuda(
+            table, scales, ids, Q, metric)
+    return ref.dequant_gather_distance_batch_ref(table, scales, ids, Q, metric)
+
+
+def dequant_gather_distance(
+    table: torch.Tensor, scales: Optional[torch.Tensor], ids: torch.Tensor,
+    q: torch.Tensor, metric: str = "l2",
+) -> torch.Tensor:
+    """(K,) ids × one (d,) query → (K,) distances: the batched kernel
+    launched at one query, so both forms give the same bits."""
+    if _on_cuda(table):
+        return _dq.dequant_gather_distance_cuda(table, scales, ids, q, metric)
+    return ref.dequant_gather_distance_ref(table, scales, ids, q, metric)
+
+
 def merge_topk(
     dists: torch.Tensor, ids: torch.Tensor, k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -60,10 +85,11 @@ def merge_topk(
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {**_gd.launches, "merge_topk": _topk.launches}
+    return {**_gd.launches, **_dq.launches, "merge_topk": _topk.launches}
 
 
 def reset_launch_counts() -> None:
-    for form in _gd.launches:
-        _gd.launches[form] = 0
+    for counts in (_gd.launches, _dq.launches):
+        for form in counts:
+            counts[form] = 0
     _topk.launches = 0

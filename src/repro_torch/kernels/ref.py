@@ -58,6 +58,49 @@ def gather_distance_ref(
     return gather_distance_batch_ref(table, ids[None], q[None], metric)[0]
 
 
+def dequant_gather_distance_batch_ref(
+    table: torch.Tensor,  # (N, d) int8 or float16 quantized payload
+    scales,  # (N,) float32 per-row scales (int8), None (float16)
+    ids: torch.Tensor,  # (B, K) int32, -1 padded
+    Q: torch.Tensor,  # (B, d) float32
+    metric: str = "l2",
+) -> torch.Tensor:
+    """(B, K) distances of the dequantized ``table[ids[b]]`` to ``Q[b]``;
+    +inf where id < 0.
+
+    An int8 row is ``x.float() * scale``, a float16 row ``x.float()``
+    (no scale); then exactly what :func:`gather_distance_batch_ref`
+    computes, on the gathered rows only.
+    """
+    B, K = ids.shape
+    if table.shape[0] == 0:
+        return torch.full((B, K), INF, dtype=torch.float32, device=ids.device)
+    safe = ids.long().clamp(0, table.shape[0] - 1)
+    x = table[safe].float()  # (B, K, d): the gathered rows only
+    if table.dtype == torch.int8:
+        x = x * scales[safe][..., None]
+    elif scales is not None:
+        raise ValueError("a float16 table carries no scales")
+    rows = torch.arange(B * K, dtype=torch.int32, device=ids.device)
+    return gather_distance_batch_ref(
+        x.reshape(B * K, -1),
+        torch.where(ids >= 0, rows.reshape(B, K), -1), Q, metric,
+    )
+
+
+def dequant_gather_distance_ref(
+    table: torch.Tensor,  # (N, d) int8 or float16
+    scales,  # (N,) float32 (int8) or None (float16)
+    ids: torch.Tensor,  # (K,) int32, -1 padded
+    q: torch.Tensor,  # (d,)
+    metric: str = "l2",
+) -> torch.Tensor:
+    """Single-query form: the batched form at one query."""
+    return dequant_gather_distance_batch_ref(
+        table, scales, ids[None], q[None], metric
+    )[0]
+
+
 def merge_topk_ref(
     dists: torch.Tensor,  # (B, M) float32 candidate distances
     ids: torch.Tensor,  # (B, M) int32 global ids, -1 sentinel padded

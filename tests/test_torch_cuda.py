@@ -7,15 +7,19 @@ nor the JAX package, so it also runs where only the port is installed:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: the merge only selects, so it must match exactly; the
-gather-distance sums d float32 products in another order than the plain
-version, so it matches to rtol 1e-5, atol 1e-4.
+gather-distance and dequant-gather-distance kernels sum d float32
+products in another order than the plain versions, so they match to
+rtol 1e-5, atol 1e-4 (the dequantized elements themselves are equal: the
+kernel dequantizes with one unfused multiply, as the plain version does).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
 from repro_torch.core import engine as E
+from repro_torch.core import quant
 from repro_torch.core.hnsw import build_hnsw
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.topk import MAX_CANDIDATES
@@ -69,6 +73,44 @@ def test_gather_distance_kernel_matches_plain(cuda, metric, d):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     assert torch.isinf(got[args[1] < 0]).all()
     assert torch.equal(single, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("precision", ["int8", "float16"])
+@pytest.mark.parametrize("d", [768, 30])  # 16-byte path, scalar path
+def test_dequant_gather_distance_kernel_matches_plain(cuda, precision,
+                                                      metric, d):
+    table, ids, Q = _gd_inputs(4, n=300, d=d, B=8, K=97)
+    payload, scales = quant.quantize_np(3 * table, precision)
+    P = torch.from_numpy(payload).to(cuda)
+    S = torch.from_numpy(scales).to(cuda) if precision == "int8" else None
+    I, Qt = torch.from_numpy(ids).to(cuda), torch.from_numpy(Q).to(cuda)
+    before = ops.launch_counts()
+    got = ops.dequant_gather_distance_batch(P, S, I, Qt, metric)
+    single = ops.dequant_gather_distance(P, S, I[0], Qt[0], metric)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for form in ("dequant_gather_distance", "dequant_gather_distance_batch"):
+        assert after[form] == before[form] + 1
+    want = ref.dequant_gather_distance_batch_ref(P, S, I, Qt, metric)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.isinf(got[I < 0]).all()
+    assert torch.equal(single, got[0])
+
+
+@pytest.mark.cuda
+def test_dequant_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q8 = torch.zeros((10, 8), dtype=torch.int8, device=cuda)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    Q = torch.zeros((2, 8), device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        ops.dequant_gather_distance_batch(q8, None, ids, Q)
+    with pytest.raises(ValueError, match="no scales"):
+        ops.dequant_gather_distance_batch(
+            q8.half(), torch.ones(10, device=cuda), ids, Q)
+    with pytest.raises(ValueError):
+        ops.dequant_gather_distance_batch(q8.float(), None, ids, Q)
 
 
 @pytest.mark.cuda
@@ -143,3 +185,43 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, mode):
     np.testing.assert_allclose(on.dists, off.dists, rtol=1e-5)
     assert on.batch_stats.n_db == off.batch_stats.n_db
     assert [s.n_db for s in on.stats] == [s.n_db for s in off.stats]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,mode,fused", [
+    ("int8", "batched", False), ("int8", "loop", False),
+    ("float16", "batched", False), ("float16", "loop", False),
+    ("float32", "loop", True), ("float16", "loop", True),
+    ("int8", "loop", True)])
+def test_quantized_and_fused_engine_on_card_matches_cpu(cuda, precision,
+                                                        mode, fused):
+    """The quantized and fused paths on the card against the same engine
+    on the CPU: equal ids, reranked distances and access counts, a
+    bit-equal tier 2, and the dequant kernel served every quantized
+    run."""
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((600, 64)).astype(np.float32)
+    Q = X[rng.choice(600, 6)] + 0.1 * rng.standard_normal((6, 64)).astype(
+        np.float32)
+    g = build_hnsw(X, M=8, ef_construction=40, seed=0)
+    res, tier2 = {}, {}
+    ops.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        eng = E.WebANNSEngine(X, g, E.EngineConfig(
+            cache_capacity=150, device=dev, precision=precision,
+            fused=fused))
+        res[dev] = eng.search(E.SearchRequest(query=Q, k=10, ef=32,
+                                              batch_mode=mode))
+        tier2[dev] = convert.cache_to_numpy(eng.store.cache)
+    counts = ops.launch_counts()
+    if precision != "float32":
+        single = mode == "loop"
+        form = "dequant_gather_distance" + ("" if single else "_batch")
+        assert counts[form] > 0, counts
+    on, off = res["cuda"], res["cpu"]
+    np.testing.assert_array_equal(on.ids, off.ids)
+    np.testing.assert_allclose(on.dists, off.dists, rtol=1e-5)
+    assert on.batch_stats.n_db == off.batch_stats.n_db
+    for name in convert.CACHE_FIELDS:
+        np.testing.assert_array_equal(tier2["cuda"][name], tier2["cpu"][name],
+                                      err_msg=name)

@@ -20,6 +20,7 @@ import torch
 from repro.core import engine as R
 from repro_torch import convert
 from repro_torch.core import engine as P
+from repro_torch.core import quant
 
 MODES = ["webanns", "webanns-base"]
 EVICTIONS = ["fifo", "lru"]
@@ -166,10 +167,278 @@ def test_in_memory_oracle_matches_lazy(small_dataset, small_graph):
         np.testing.assert_array_equal(res.dists, d.numpy())
 
 
-def test_unported_features_raise():
+def test_unported_features_raise(small_dataset, small_graph):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.EngineConfig(device="cpu", precision="int8")
+        P.EngineConfig(device="cpu", precision="pq")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.EngineConfig(device="cpu", fused=True)
+        P.EngineConfig(device="cpu", precision="pq8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.EngineConfig(device="cpu", n_shards=2)
+    _, port = _engines(small_dataset, small_graph, "webanns", "fifo")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.save("unused")
+
+
+# ----------------------------------------------- quantized tier 2 + rerank
+#
+# Both engines start from ONE quantized tier 2: the reference's, partly
+# warmed and carried across with convert.cache_from_reference. After each
+# search the whole tier-2 state (slab and scales included) must be equal
+# bit for bit, the access counts exact, and the returned distances equal:
+# both packages rerank on the host in the same numpy.
+
+QUANT = ["float16", "int8"]
+DRIVERS = ["single", "loop", "batched"]
+
+
+def _qpair(small_dataset, small_graph, precision, eviction, **extra):
+    X, _ = small_dataset
+    g = small_graph
+    graph, table = convert.from_reference(
+        X, g.neighbors, g.levels, g.entry_point, g.max_level, g.M, g.metric)
+    kw = dict(eviction=eviction, cache_capacity=len(X) // 4, metric="l2",
+              precision=precision)
+    kw.update(extra)
+    ref = R.WebANNSEngine(X, g, R.EngineConfig(**kw))
+    port = P.WebANNSEngine(table, graph, P.EngineConfig(device="cpu", **kw))
+    ref.warm_cache(np.arange(0, len(X), 9)[: len(X) // 8])
+    c = ref.store.cache
+    port.store.cache = convert.cache_from_reference(
+        *(np.asarray(getattr(c, f)) for f in convert.CACHE_FIELDS),
+        device="cpu")
+    return ref, port
+
+
+def _tier2(eng):
+    if isinstance(eng, P.WebANNSEngine):
+        return convert.cache_to_numpy(eng.store.cache)
+    return {f: np.asarray(getattr(eng.store.cache, f))
+            for f in convert.CACHE_FIELDS}
+
+
+def _serve(ref, port, requests):
+    """Both engines serve ``requests``; after each, the results and the
+    two tier-2 states."""
+    out = []
+    for q, mode in requests:
+        w = ref.search(R.SearchRequest(query=q, k=K, ef=EF, batch_mode=mode))
+        g = port.search(P.SearchRequest(query=q, k=K, ef=EF,
+                                        batch_mode=mode))
+        out.append((w, g, _tier2(ref), _tier2(port)))
+    return out
+
+
+def _driver_requests(Q, driver):
+    if driver == "single":
+        return [(q, "batched") for q in Q[:4]]
+    if driver == "loop":
+        return [(Q, "loop")]
+    return [(Q, "batched"), (Q[2:6] + 0.01, "batched")]
+
+
+@pytest.fixture(scope="module")
+def quant_results(small_dataset, small_graph):
+    done = {}
+
+    def get(precision, eviction, driver):
+        key = (precision, eviction, driver)
+        if key not in done:
+            ref, port = _qpair(small_dataset, small_graph, precision,
+                               eviction)
+            served = _serve(ref, port, _driver_requests(
+                _queries(small_dataset), driver))
+            assert ref.access_stats.n_db > 1  # loads and reranks happened
+            done[key] = (served, ref, port)
+        return done[key]
+
+    return get
+
+
+def _assert_same_tier2(got, want):
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+QCOMBOS = [(p, e, d) for p in QUANT for e in EVICTIONS for d in DRIVERS]
+
+
+@pytest.mark.parametrize("precision,eviction,driver", QCOMBOS)
+def test_quantized_results_match_reference(quant_results, precision,
+                                           eviction, driver):
+    served, _, _ = quant_results(precision, eviction, driver)
+    for w, g, _, _ in served:
+        np.testing.assert_array_equal(g.ids, np.asarray(w.ids))
+        # the rerank is the same numpy on the same tier-3 rows: exact
+        np.testing.assert_array_equal(g.dists, np.asarray(w.dists))
+
+
+@pytest.mark.parametrize("precision,eviction,driver", QCOMBOS)
+def test_quantized_access_counts_match_reference(quant_results, precision,
+                                                 eviction, driver):
+    served, ref, port = quant_results(precision, eviction, driver)
+    for w, g, _, _ in served:
+        for ws, gs in zip(_stats_list(w), _stats_list(g)):
+            for f in STAT_FIELDS:
+                assert getattr(gs, f) == getattr(ws, f), f
+        if w.batch_stats is not None:
+            for f in BATCH_FIELDS:
+                assert getattr(g.batch_stats, f) == \
+                    getattr(w.batch_stats, f), f
+    for f in ("n_db", "items_fetched", "items_used"):
+        assert getattr(port.access_stats, f) == getattr(ref.access_stats, f)
+
+
+@pytest.mark.parametrize("precision,eviction,driver", QCOMBOS)
+def test_quantized_tier2_matches_reference(quant_results, precision,
+                                           eviction, driver):
+    served, _, port = quant_results(precision, eviction, driver)
+    for _, _, want, got in served:
+        _assert_same_tier2(got, want)
+    assert port.store.cache.slab.dtype == quant.slab_dtype(precision)
+
+
+@pytest.mark.parametrize("precision", QUANT)
+def test_rerank_costs_one_access(small_dataset, small_graph, precision):
+    """A warm tier 2: the rerank is the only tier-3 access, one for a
+    single query and one for a whole batch."""
+    X, _ = small_dataset
+    Q = _queries(small_dataset)
+    _, port = _qpair(small_dataset, small_graph, precision, "fifo",
+                     cache_capacity=len(X))
+    port.warm_cache()
+    single = port.search(P.SearchRequest(query=Q[0], k=K, ef=EF))
+    assert single.stats.n_db == 1 and port.access_stats.n_db == 1
+    batch = port.search(P.SearchRequest(query=Q, k=K, ef=EF))
+    assert batch.batch_stats.n_db == 1 and port.access_stats.n_db == 2
+    assert [s.n_db for s in batch.stats] == [1] * len(Q)
+
+
+def test_rerank_disabled_matches_reference(small_dataset, small_graph):
+    """rerank_alpha=0 returns the quantized beam as it is: no rerank
+    access, distances to float32 rounding of the reference's."""
+    ref, port = _qpair(small_dataset, small_graph, "int8", "fifo",
+                       rerank_alpha=0.0)
+    for w, g, want, got in _serve(ref, port, [
+            (_queries(small_dataset), "batched")]):
+        np.testing.assert_array_equal(g.ids, np.asarray(w.ids))
+        np.testing.assert_allclose(g.dists, np.asarray(w.dists), rtol=1e-5)
+        assert g.batch_stats.n_db == w.batch_stats.n_db
+        _assert_same_tier2(got, want)
+
+
+@pytest.mark.parametrize("precision", ["float32"] + QUANT)
+def test_cache_bytes_and_resize_at_precision(small_dataset, small_graph,
+                                             precision):
+    ref, port = _qpair(small_dataset, small_graph, precision, "fifo")
+    assert port.cache_bytes() == ref.cache_bytes()
+    budget = 50_000
+    assert port.resize_cache_bytes(budget, warm=True) == \
+        ref.resize_cache_bytes(budget, warm=True)
+    assert port.cache_bytes() == ref.cache_bytes() <= budget
+    _assert_same_tier2(_tier2(port), _tier2(ref))
+
+
+# ------------------------------------------------------------ fused driver
+
+PRECISIONS = ["float32"] + QUANT
+
+
+@pytest.fixture(scope="module")
+def fused_results(small_dataset, small_graph):
+    done = {}
+
+    def get(precision, eviction):
+        if (precision, eviction) not in done:
+            ref, port = _qpair(small_dataset, small_graph, precision,
+                               eviction, fused=True)
+            Q = _queries(small_dataset)
+            served = _serve(ref, port, [(q, "batched") for q in Q[:4]]
+                            + [(Q[4:7], "batched")])
+            assert ref.access_stats.n_db > 1
+            done[(precision, eviction)] = (served, ref, port)
+        return done[(precision, eviction)]
+
+    return get
+
+
+@pytest.mark.parametrize("eviction", EVICTIONS)
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_fused_matches_reference(fused_results, precision, eviction):
+    """The fused driver against the reference's fused driver: equal ids,
+    exact access counts and tier-2 state; distances exact after a
+    quantized session's rerank, to float32 rounding at float32."""
+    served, ref, port = fused_results(precision, eviction)
+    for w, g, want, got in served:
+        np.testing.assert_array_equal(g.ids, np.asarray(w.ids))
+        if precision == "float32":
+            np.testing.assert_allclose(g.dists, np.asarray(w.dists),
+                                       rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(g.dists, np.asarray(w.dists))
+        for ws, gs in zip(_stats_list(w), _stats_list(g)):
+            for f in ("n_db", "items_fetched", "n_visited"):
+                assert getattr(gs, f) == getattr(ws, f), f
+            assert gs.t_db == pytest.approx(ws.t_db, rel=1e-9)
+        _assert_same_tier2(got, want)
+    for f in ("n_db", "items_fetched", "items_used"):
+        assert getattr(port.access_stats, f) == getattr(ref.access_stats, f)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_fused_payload_is_the_reference_payload(fused_results, precision):
+    """The device-resident tier-3 payload is the port's own quantization
+    of the float32 table, equal to the reference's; int8 carries its
+    scales and takes under a third of the float32 bytes."""
+    _, ref, port = fused_results(precision, "fifo")
+    payload, scales = port._payload
+    np.testing.assert_array_equal(payload.numpy(), np.asarray(ref._table_dev))
+    assert payload.dtype == quant.slab_dtype(precision)
+    if precision == "int8":
+        np.testing.assert_array_equal(scales.numpy(),
+                                      np.asarray(ref._tscales_dev))
+        X = np.asarray(ref.external.vectors)
+        assert payload.numel() + 4 * scales.numel() < X.nbytes / 3
+    else:
+        assert scales is None and ref._tscales_dev is None
+
+
+def test_fused_float32_equals_port_loop(small_dataset, small_graph):
+    """Fused float32 gives the host loop driver's bits: the same kernel
+    over the same rows, one access for each phase that missed."""
+    X, _ = small_dataset
+    g = small_graph
+    graph, table = convert.from_reference(
+        X, g.neighbors, g.levels, g.entry_point, g.max_level, g.M, g.metric)
+
+    def engine(fused):
+        return P.WebANNSEngine(table, graph, P.EngineConfig(
+            device="cpu", cache_capacity=len(X) // 4, fused=fused))
+
+    host, fused = engine(False), engine(True)
+    for q in _queries(small_dataset):
+        h = host.search(P.SearchRequest(query=q, k=K, ef=EF))
+        f = fused.search(P.SearchRequest(query=q, k=K, ef=EF))
+        np.testing.assert_array_equal(f.ids, h.ids)
+        np.testing.assert_array_equal(f.dists, h.dists)
+        assert f.stats.n_db == h.stats.n_db
+        assert f.stats.items_fetched == h.stats.items_fetched
+
+
+def test_fused_runs_only_in_webanns_mode(small_dataset, small_graph):
+    """fused=True with the eager baseline runs the host driver, as the
+    reference's rule does; a batched request on a fused engine runs one
+    fused query at a time."""
+    ref, port = _qpair(small_dataset, small_graph, "int8", "fifo",
+                       fused=True, mode="webanns-base")
+    Q = _queries(small_dataset)
+    for w, g, want, got in _serve(ref, port, [(Q[0], "batched")]):
+        np.testing.assert_array_equal(g.ids, np.asarray(w.ids))
+        assert g.stats.n_hops == w.stats.n_hops > 0  # the host driver
+        _assert_same_tier2(got, want)
+    assert port._payload is None
+    _, port = _qpair(small_dataset, small_graph, "int8", "fifo", fused=True)
+    res = port.search(P.SearchRequest(query=Q[:3], k=K, ef=EF))
+    assert res.batch_stats.n_db == sum(s.n_db for s in res.stats)
+    assert port._payload is not None

@@ -42,6 +42,18 @@ def _imported_roots(path):
             yield node.lineno, (node.module or "").split(".")[0]
 
 
+def test_every_kernel_source_has_its_wrapper():
+    """Each CUDA source is built by ``_build.sources()`` and bound by a
+    wrapper module of the same name (merge_topk's is ``topk``)."""
+    from repro_torch.kernels import _build
+
+    stems = {p.stem for p in _build.sources()}
+    assert stems == {"gather_distance", "merge_topk",
+                     "dequant_gather_distance"}
+    wrappers = {p.stem for p in (PACKAGE / "kernels").glob("*.py")}
+    assert stems - {"merge_topk"} <= wrappers and "topk" in wrappers
+
+
 @pytest.mark.parametrize(
     "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
@@ -53,7 +65,9 @@ def test_no_jax_or_reference_import(path):
 def test_every_module_imports_without_jax():
     modules = [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, prefix="repro_torch.")]
-    assert "repro_torch.core.engine" in modules
+    for name in ("core.engine", "core.quant", "convert",
+                 "kernels.dequant_gather_distance"):
+        assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"
@@ -92,6 +106,16 @@ def test_engine_build_raises_without_cuda(no_cuda):
                               config=P.EngineConfig(device=None))
     with pytest.raises(RuntimeError, match="is_available"):
         P.WebANNSEngine(X, empty_graph(20, 0, 4), P.EngineConfig())
+
+
+@pytest.mark.parametrize("precision,fused", [("int8", False),
+                                             ("float16", True)])
+def test_quantized_and_fused_engines_raise_without_cuda(no_cuda, precision,
+                                                        fused):
+    X = np.random.default_rng(0).standard_normal((20, 8)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="is_available"):
+        P.WebANNSEngine(X, empty_graph(20, 0, 4), P.EngineConfig(
+            precision=precision, fused=fused))
 
 
 def test_engine_runs_on_cpu_only_when_asked():

@@ -3,8 +3,10 @@ Hopper kernels against their plain versions on the card.
 
 On the CPU the port's ops run their plain versions, which must match the
 reference's Pallas kernels (interpret mode) and its jnp oracles: the
-gather-distance within float32 tolerance (rtol 1e-5, a different
-summation order), the merge exactly (it only selects). The kernels
+gather-distance and the dequant-gather-distance within float32 tolerance
+(rtol 1e-5, atol 1e-5: a different summation order; for cos the Pallas
+kernel also normalises the query first, another rounding), the merge
+exactly (it only selects). The kernels
 against their plain versions are in ``test_torch_cuda.py``: they need
 the card, where JAX is not installed.
 """
@@ -18,7 +20,12 @@ import torch
 
 from repro.core import distances as RD
 from repro.core import search as RS
+from repro.core import quant as RQ
 from repro.kernels import ref as jref
+from repro.kernels.dequant_gather_distance import (
+    dequant_gather_distance_batch_pallas,
+    dequant_gather_distance_pallas,
+)
 from repro.kernels.gather_distance import (
     gather_distance_batch_pallas,
     gather_distance_pallas,
@@ -109,6 +116,78 @@ def test_gather_distance_single_plain_matches_reference(metric):
         metric,
     ).numpy()
     np.testing.assert_array_equal(got, batched[0])
+
+
+# -------------------------------------------------- dequant-gather-distance
+
+QUANT = ["int8", "float16"]
+
+
+def _dq_inputs(seed, precision, n=40, d=24, B=5, K=9):
+    """A quantized table (by the reference's codec), its scales as the
+    reference passes them (ones for float16) and as the port does (None
+    for float16), -1 padded ids and queries."""
+    table, ids, Q = _gd_inputs(seed, n=n, d=d, B=B, K=K)
+    table = table * np.float32(3.0)
+    payload, scales = RQ.quantize_np(table, precision)
+    port_scales = torch.from_numpy(scales) if precision == "int8" else None
+    return payload, scales, port_scales, ids, Q
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("precision", QUANT)
+def test_dequant_gather_distance_batch_plain_matches_reference(
+        precision, metric):
+    payload, scales, port_scales, ids, Q = _dq_inputs(6, precision)
+    got = ops.dequant_gather_distance_batch(
+        torch.from_numpy(payload), port_scales, torch.from_numpy(ids),
+        torch.from_numpy(Q), metric,
+    ).numpy()
+    args = (jnp.asarray(payload), jnp.asarray(scales), jnp.asarray(ids),
+            jnp.asarray(Q))
+    pallas = np.asarray(dequant_gather_distance_batch_pallas(
+        *args, metric=metric, interpret=True))
+    oracle = np.asarray(jref.dequant_gather_distance_batch_ref(
+        *args, metric))
+    assert np.isinf(got[ids < 0]).all()
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+    # the plain version is the float32 gather over the dequantized table
+    dq = torch.from_numpy(RQ.dequantize_np(payload, scales))
+    np.testing.assert_array_equal(got, ops.gather_distance_batch(
+        dq, torch.from_numpy(ids), torch.from_numpy(Q), metric).numpy())
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("precision", QUANT)
+def test_dequant_gather_distance_single_plain_matches_reference(
+        precision, metric):
+    payload, scales, port_scales, ids, Q = _dq_inputs(7, precision)
+    row, q = ids[1], Q[1]
+    got = ops.dequant_gather_distance(
+        torch.from_numpy(payload), port_scales, torch.from_numpy(row),
+        torch.from_numpy(q), metric,
+    ).numpy()
+    args = (jnp.asarray(payload), jnp.asarray(scales), jnp.asarray(row),
+            jnp.asarray(q))
+    pallas = np.asarray(dequant_gather_distance_pallas(
+        *args, metric=metric, interpret=True))
+    oracle = np.asarray(jref.dequant_gather_distance_ref(*args, metric))
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+    batched = ops.dequant_gather_distance_batch(
+        torch.from_numpy(payload), port_scales, torch.from_numpy(ids),
+        torch.from_numpy(Q), metric,
+    ).numpy()
+    np.testing.assert_array_equal(got, batched[1])
+
+
+def test_dequant_plain_version_takes_no_float16_scales():
+    payload, scales, _, ids, Q = _dq_inputs(8, "float16")
+    with pytest.raises(ValueError, match="no scales"):
+        ops.dequant_gather_distance_batch(
+            torch.from_numpy(payload), torch.from_numpy(scales),
+            torch.from_numpy(ids), torch.from_numpy(Q))
 
 
 # --------------------------------------------------------------- merge-topk
@@ -242,5 +321,10 @@ def test_ops_run_plain_versions_on_cpu_tensors():
     ops.gather_distance_batch(torch.from_numpy(table), torch.from_numpy(ids),
                               torch.from_numpy(Q))
     ops.merge_topk(torch.zeros(2, 5), torch.zeros(2, 5, dtype=torch.int32), 3)
+    ops.dequant_gather_distance_batch(
+        torch.from_numpy(table).to(torch.float16), None,
+        torch.from_numpy(ids), torch.from_numpy(Q))
     assert ops.launch_counts() == {
-        "gather_distance": 0, "gather_distance_batch": 0, "merge_topk": 0}
+        "gather_distance": 0, "gather_distance_batch": 0,
+        "dequant_gather_distance": 0, "dequant_gather_distance_batch": 0,
+        "merge_topk": 0}

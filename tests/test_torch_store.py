@@ -4,7 +4,10 @@ Replays the float32 FIFO/LRU cases of ``test_store.py`` and
 ``test_store_edge.py`` on both packages and compares the whole cache
 state after each step (slab, both maps, clock, LRU stamps), plus the
 tier-3 counters of ``TieredStore.gather`` / ``gather_batch`` / ``warm``.
-The store only moves and selects values, so every comparison is exact.
+The quantized cases (float16, int8 with its per-row scales) compare the
+slab and the scales the same way. The store only moves, selects and
+quantizes values with one IEEE operation a step, so every comparison is
+exact.
 """
 
 import jax.numpy as jnp
@@ -13,6 +16,7 @@ import pytest
 import torch
 
 from repro.core import store as R
+from repro_torch.core import quant as PQ
 from repro_torch.core import store as P
 
 CPU = torch.device("cpu")
@@ -188,6 +192,181 @@ def test_random_insert_touch_sequences(policy, seed):
         ids = rng.choice(30, int(rng.integers(1, 2 * cap + 3)), replace=False)
         ids = np.where(rng.random(len(ids)) < 0.2, -1, ids)
         c.insert(ids, policy, vecs=_vecs(ids, 2))
+
+
+# ------------------------------------------------------ quantized tier 2
+
+QUANT = ["float16", "int8"]
+
+
+def _qvecs(ids, d=6, seed=0):
+    """Rows of distinct magnitudes, so every int8 row has its own scale."""
+    rng = np.random.default_rng(seed)
+    out = rng.standard_normal((len(ids), d)).astype(np.float32)
+    return out * (1.0 + np.arange(len(ids), dtype=np.float32))[:, None]
+
+
+class QPair(Pair):
+    """A quantized cache in each package; ``check`` compares the whole
+    state, the slab and the scales included, bit for bit."""
+
+    def __init__(self, n, cap, precision, d=6):
+        self.r = R.cache_init(n, cap, d, precision=precision)
+        self.p = P.cache_init(n, cap, d, device=CPU, precision=precision)
+        self.d = d
+
+    def insert(self, ids, policy=R.EVICT_FIFO, vecs=None):
+        ids = np.asarray(ids, np.int32)
+        super().insert(ids, policy,
+                       _qvecs(ids, self.d) if vecs is None else vecs)
+
+    def check(self):
+        assert_same_cache(self.p, self.r)
+        assert self.p.slab.dtype == PQ.slab_dtype(self.r.precision)
+        np.testing.assert_array_equal(self.p.slab.numpy(),
+                                      np.asarray(self.r.slab))
+        np.testing.assert_array_equal(self.p.scales.numpy(),
+                                      np.asarray(self.r.scales))
+
+
+@pytest.mark.parametrize("precision", QUANT)
+def test_quantized_insert_lookup_dequantizes(precision):
+    c = QPair(100, 8, precision)
+    c.insert([3, 7, 11, -1])
+    present, out = c.lookup([3, 7, 11, 5])  # float32 rows, equal to ref's
+    assert present.tolist() == [True, True, True, False]
+    assert out.dtype == np.float32
+    want = _qvecs(np.array([3, 7, 11, -1], np.int32), 6)[:3]
+    err = np.abs(out[:3] - want)
+    bound = PQ.max_abs_error(np.abs(want).max(-1), precision)
+    assert (err <= bound[:, None] + 1e-6).all() and err.max() > 0
+    assert c.p.precision == precision
+    assert c.p.nbytes() == 8 * PQ.bytes_per_vector(6, precision)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("precision", QUANT)
+def test_quantized_eviction_matches_reference(precision, policy):
+    c = QPair(60, 5, precision)
+    rng = np.random.default_rng(3)
+    for step in range(12):
+        if policy == R.EVICT_LRU and step % 3 == 2:
+            c.touch(rng.integers(-1, 60, 4))
+            continue
+        ids = rng.choice(60, int(rng.integers(1, 9)), replace=False)
+        ids = np.where(rng.random(len(ids)) < 0.2, -1, ids)
+        c.insert(ids, policy, vecs=_qvecs(ids, 6, seed=step))
+        c.lookup(rng.integers(-1, 60, 10))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("precision", QUANT)
+def test_quantized_overflow_keeps_newest_row_with_its_scale(precision,
+                                                            policy):
+    """An insert wider than the cache, with duplicate ids in it: rows
+    that recycle a slot keep the newest, and an int8 slot's scale comes
+    from the same row as its payload."""
+    cap = 4
+    c = QPair(50, cap, precision)
+    ids = np.array([5, 6, 7, 5, 8, 9, 6, 10, 11, 12, 7], np.int32)
+    vecs = _qvecs(ids, 6, seed=9)
+    c.insert(ids, policy, vecs=vecs)
+    live = c.p.id_of.numpy()
+    assert sorted(live.tolist()) == sorted(set(ids[-cap:].tolist()))
+    # each live slot holds the quantization of the row that won it: the
+    # last row of the batch with that id
+    payload, scales = PQ.quantize_np(vecs, precision)
+    for slot, i in enumerate(live):
+        row = np.nonzero(ids == i)[0][-1]
+        np.testing.assert_array_equal(c.p.slab.numpy()[slot], payload[row])
+        if precision == "int8":
+            assert c.p.scales.numpy()[slot] == scales[row]
+
+
+def test_cache_insert_batch_quantized():
+    ids = np.arange(12, dtype=np.int32).reshape(3, 4)
+    ids[1, 2] = -1
+    vecs = _qvecs(ids.reshape(-1), 8).reshape(3, 4, 8)
+    r = R.cache_insert_batch(R.cache_init(64, 16, 8, precision="int8"),
+                             jnp.asarray(ids), jnp.asarray(vecs))
+    p = P.cache_insert_batch(
+        P.cache_init(64, 16, 8, device=CPU, precision="int8"),
+        torch.from_numpy(ids), torch.from_numpy(vecs))
+    assert_same_cache(p, r)
+    np.testing.assert_array_equal(p.slab.numpy(), np.asarray(r.slab))
+    np.testing.assert_array_equal(p.scales.numpy(), np.asarray(r.scales))
+    present, got = P.cache_lookup_batch(p, torch.from_numpy(ids))
+    _, want = R.cache_lookup_batch(r, jnp.asarray(ids))
+    valid = ids >= 0
+    np.testing.assert_array_equal(present.numpy(), valid)
+    np.testing.assert_array_equal(got.numpy()[valid], np.asarray(want)[valid])
+
+
+def test_float_slabs_carry_no_scales():
+    for precision in ("float32", "float16"):
+        c = P.cache_init(10, 4, 3, device=CPU, precision=precision)
+        assert tuple(c.scales.shape) == (0,) and c.row_scales() is None
+    c = P.cache_init(10, 4, 3, device=CPU, precision="int8")
+    assert c.row_scales() is c.scales and tuple(c.scales.shape) == (4,)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        P.cache_init(10, 4, 3, device=CPU, precision="pq")
+
+
+def _qstores(precision, n=30, d=6, cap=8, eviction="fifo"):
+    X = _qvecs(np.arange(n), d, seed=4)
+    return (X, R.TieredStore(R.ExternalStore(X), cap, eviction,
+                             precision=precision),
+            P.TieredStore(P.ExternalStore(X), cap, eviction, device=CPU,
+                          precision=precision))
+
+
+def _same_qstate(rs, ps):
+    _same_stats(rs, ps)
+    np.testing.assert_array_equal(ps.cache.slab.numpy(),
+                                  np.asarray(rs.cache.slab))
+    np.testing.assert_array_equal(ps.cache.scales.numpy(),
+                                  np.asarray(rs.cache.scales))
+
+
+@pytest.mark.parametrize("eviction", ["fifo", "lru"])
+@pytest.mark.parametrize("precision", QUANT)
+def test_quantized_gather_rows_and_state(precision, eviction):
+    """A hit comes back as its dequantized slab row and a miss as the
+    full-precision fetched row, as in the reference; the cache holds the
+    quantized rows."""
+    X, rs, ps = _qstores(precision, cap=5, eviction=eviction)
+    for ids in ([1, 3, 5], [1, 3, 5], [2, 3, 9, 11], [4, 6, 8, 10, 12, 14],
+                [1, 2, 14]):
+        ids = np.asarray(ids, np.int32)
+        hits = P.cache_slots(ps.cache, torch.from_numpy(ids))[0].numpy()
+        want = rs.gather(ids)
+        got = ps.gather(ids).numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got[~hits], X[ids[~hits]])
+        if hits.any():  # a dequantized row differs from the original
+            assert not np.array_equal(got[hits], X[ids[hits]])
+        _same_qstate(rs, ps)
+
+
+@pytest.mark.parametrize("precision", QUANT)
+def test_quantized_gather_batch_warm_resize(precision):
+    X, rs, ps = _qstores(precision, cap=6, eviction="lru")
+    ids = np.array([[1, 2, 7, -1], [2, 1, 3, -1], [7, 3, 1, 2]], np.int32)
+    for store in (rs, ps):
+        store.warm(np.array([2, 3], np.int32))
+    want = rs.gather_batch(ids)
+    rows, pos = ps.gather_batch(ids)
+    valid = ids >= 0
+    np.testing.assert_array_equal(rows.numpy()[pos.numpy()[valid]],
+                                  want[valid])
+    _same_qstate(rs, ps)
+    assert ps.cache_bytes() == rs.cache_bytes() == \
+        6 * PQ.bytes_per_vector(6, precision)
+    for store in (rs, ps):
+        store.resize(3)
+    _same_qstate(rs, ps)
+    assert ps.cache.slab.dtype == PQ.slab_dtype(precision)
 
 
 # --------------------------------------------------------------- tier 3
