@@ -29,6 +29,14 @@ the script exits non-zero:
    - the fused driver at float32, float16 and int8, serving the 32
      queries one at a time; checked as above, and float32 fused against
      the float32 loop's bits;
+   - product quantization (``precision="pq"``, 192 subspaces, rerank
+     α = 4) over one codebook trained on the card by the port's
+     ``train_pq`` and adopted by every engine: single, ``batched``,
+     ``loop`` and fused; checked for recall@10 against the JAX package's
+     at this configuration (``REF_PQ_RECALL``), ids against the CPU
+     engine, a tier 2 of 480,000 bytes bit-equal to the CPU engine's,
+     one rerank access, a fused payload of uint8 codes only, and the ADC
+     kernel's launches;
 5. times: each kernel, its plain version and its bound (CUDA events),
    and the end-to-end latency of batched, single-query and fused
    searches at each precision.
@@ -75,6 +83,22 @@ PRECISIONS = ("float32",) + QUANT
 MIN_AGREEMENT = 0.99
 
 
+# product quantization: 192 subspaces of 4 dims (192 code bytes a row
+# against int8's 772); coarser splits lose recall at d = 768 (PERF.md §2)
+PQ_SUBSPACES = 192
+PQ_ALPHA = 4.0
+# recall@10 of the JAX package's pq drivers at this configuration, on
+# these 32 queries, with its own codebook (seed 0), measured on the CPU by
+# tools/pq_reference_recall.py, which imports Shape, the seeds and the
+# pq settings from this file; the port's pq drivers must come within
+# PQ_RECALL_TOL of them. The single-query driver is the loop's.
+REF_PQ_RECALL = {"batched": 0.90625, "loop": 0.96875, "fused": 0.84375}
+PQ_RECALL_TOL = 0.02
+
+# the corpus, the HNSW build, the queries and the pq codebook
+CORPUS_SEED, GRAPH_SEED, QUERY_SEED, PQ_SEED = 13, 0, 5, 0
+
+
 @dataclasses.dataclass(frozen=True)
 class Shape:
     """The served configuration: the paper's widths (src/repro/configs/
@@ -108,9 +132,10 @@ def load_port():
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core.engine as engine
     from repro_torch import convert
-    from repro_torch.core import quant
+    from repro_torch.core import pq, quant
     from repro_torch.core.eval import brute_force_topk, recall_at_k
     from repro_torch.core.hnsw import build_hnsw
+    from repro_torch.core.storage import InMemoryBackend
     from repro_torch.data.synthetic import corpus_embeddings
     from repro_torch.kernels import _build, ops, ref
 
@@ -118,7 +143,7 @@ def load_port():
         engine=engine, brute_force_topk=brute_force_topk,
         recall_at_k=recall_at_k, build_hnsw=build_hnsw,
         corpus_embeddings=corpus_embeddings, build=_build, ops=ops, ref=ref,
-        convert=convert, quant=quant,
+        convert=convert, quant=quant, pq=pq, InMemoryBackend=InMemoryBackend,
     )
 
 
@@ -227,6 +252,7 @@ def check_kernels(port, shape: Shape, dev, rng) -> dict:
                 err["gather_distance"],
                 float((one[fin[0]] - one_ref[fin[0]]).abs().max()))
     err.update(check_dequant_kernels(port, shape, dev, rng))
+    err.update(check_adc_kernels(port, shape, dev, rng))
     for B, M, k in ((shape.batch, shape.ef + shape.degree, shape.ef),
                     (shape.batch, shape.ef + shape.miss_cap, shape.ef),
                     (shape.batch, shape.degree + 1, 1)):
@@ -294,6 +320,66 @@ def check_dequant_kernels(port, shape: Shape, dev, rng) -> dict:
     return err
 
 
+def adc_inputs(port, rng, rows: int, M: int, B: int, K: int, shape: Shape,
+               metric: str, dev):
+    """Random codes over ``rows`` rows, a random (M, 256, d / M) codebook,
+    B queries' lookup tables built on the card by the path's builder, and
+    -1-padded ids: the ADC kernel's inputs at a path's shape."""
+    cent = torch.from_numpy(rng.standard_normal(
+        (M, 256, shape.dim // M)).astype(np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(
+        0, 256, (rows, M)).astype(np.uint8)).to(dev)
+    ids, Q = gd_inputs(rng, rows, shape, K, dev)
+    ids, Q = ids[:B].contiguous(), Q[:B].contiguous()
+    return codes, port["pq"].build_lut(Q, cent, metric), ids
+
+
+def check_adc_kernels(port, shape: Shape, dev, rng) -> dict:
+    """The ADC kernel against its plain version on the card, l2/ip/cos at
+    M = 32 and M = 192 (several 32 KiB table chunks, 12 at cos), at a
+    hop's shape (32 queries × 32 ids over the tier-2 slab) and a fused
+    bulk load's (1 × miss_cap over the payload), in both forms, under
+    torch.equal; and the kernel's output, copied to the host, against
+    the numpy oracle ``pq.adc_distance_batch_np`` under array_equal."""
+    ops, ref, pq = port["ops"], port["ref"], port["pq"]
+    err = {"adc_gather_distance": 0.0, "adc_gather_distance_batch": 0.0}
+    for M in (32, PQ_SUBSPACES):
+        for rows, B, K in ((shape.cache, shape.batch, shape.degree),
+                           (shape.n, 1, shape.miss_cap)):
+            for metric in ("l2", "ip", "cos"):
+                what = f"M={M} {metric} ({B}, {K}) over {rows} rows"
+                codes, luts, ids = adc_inputs(port, rng, rows, M, B, K,
+                                              shape, metric, dev)
+                got = ops.adc_gather_distance_batch(codes, luts, ids, metric)
+                want = ref.adc_gather_distance_batch_ref(codes, luts, ids,
+                                                         metric)
+                one = ops.adc_gather_distance(codes, luts[0], ids[0], metric)
+                one_ref = ref.adc_gather_distance_ref(codes, luts[0], ids[0],
+                                                      metric)
+                torch.cuda.synchronize()
+                check(bool(torch.isinf(got[ids < 0]).all()),
+                      f"padded ids give +inf: {what}")
+                check(torch.equal(got, want),
+                      f"adc_gather_distance_batch = plain: {what}")
+                check(torch.equal(one, one_ref),
+                      f"adc_gather_distance = plain: {what}")
+                check(torch.equal(one, got[0]),
+                      f"single form = batched form: {what}")
+                oracle = pq.adc_distance_batch_np(
+                    codes.cpu().numpy(), luts.cpu().numpy(),
+                    ids.cpu().numpy(), metric)
+                check(np.array_equal(got.cpu().numpy(), oracle),
+                      f"adc_gather_distance_batch = numpy oracle: {what}")
+                fin = ids >= 0
+                err["adc_gather_distance_batch"] = max(
+                    err["adc_gather_distance_batch"],
+                    float((got[fin] - want[fin]).abs().max()))
+                err["adc_gather_distance"] = max(
+                    err["adc_gather_distance"],
+                    float((one[fin[0]] - one_ref[fin[0]]).abs().max()))
+    return err
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -313,21 +399,37 @@ REQUEST_FORMS = {"single": (0, "batched"), "batched": (None, "batched"),
 
 def run_query_path(port, shape: Shape, device: str, X, graph, Q,
                    requests=REQUESTS, precision: str = "float32",
-                   fused: bool = False) -> dict:
+                   fused: bool = False, codebook=None) -> dict:
     """The requests named in ``requests`` (a single query, a batch in
     ``batched`` mode, the batch in ``loop`` mode, or the batch on a fused
     engine), each on a fresh engine on ``device`` at ``precision``, with
     the launch counts set to 0 just before and read just after; launch
-    counts per request. The checks are the caller's."""
+    counts per request. A ``codebook`` makes the engines pq (rerank α =
+    PQ_ALPHA) and each adopts it through its storage backend. The checks
+    are the caller's."""
     E, ops = port["engine"], port["ops"]
+    extra = {}
+    if codebook is not None:
+        precision = "pq"
+        extra = dict(pq_subspaces=codebook.n_subspaces,
+                     rerank_alpha=PQ_ALPHA)
     cfg = E.EngineConfig(cache_capacity=shape.cache, ef_search=shape.ef,
-                         device=device, precision=precision, fused=fused)
+                         device=device, precision=precision, fused=fused,
+                         **extra)
+
+    def source():
+        if codebook is None:
+            return X
+        backend = port["InMemoryBackend"](X)
+        backend.codebook = codebook
+        return backend
+
     out = {"engines": {}, "launches": {}}
     ops.reset_launch_counts()
     for name in requests:
         first, mode = REQUEST_FORMS[name]
         before = ops.launch_counts()
-        eng = E.WebANNSEngine(X, graph, cfg)
+        eng = E.WebANNSEngine(source(), graph, cfg)
         t0 = time.perf_counter()
         res = eng.search(E.SearchRequest(
             query=Q if first is None else Q[first], k=shape.k,
@@ -448,17 +550,99 @@ def check_fused_path(port, shape: Shape, X, Q, run, cpu, precision: str,
     return out
 
 
-def check_rerank_access(port, shape: Shape, X, graph, Q) -> dict:
+def check_pq_path(port, shape: Shape, X, Q, run, cpu) -> dict:
+    """The pq paths on the card (``run`` holds single, batched, loop and
+    fused) against the JAX package's recall and the CPU engine."""
+    what = "pq path"
+    out = {}
+    for name in ("batched", "loop", "fused"):
+        res = run[name]
+        check(res.ids.shape == (shape.batch, shape.k)
+              and bool(np.isfinite(res.dists).all())
+              and bool(((res.ids >= 0) & (res.ids < shape.n)).all()),
+              f"{what}, {name}: shape, finite distances, ids in range")
+        truth = port["brute_force_topk"](X, Q, shape.k)
+        recall = port["recall_at_k"](res.ids, truth)
+        out[f"recall_at_10_{name}"] = recall
+        out[f"reference_recall_at_10_{name}"] = REF_PQ_RECALL[name]
+        check(abs(recall - REF_PQ_RECALL[name]) <= PQ_RECALL_TOL,
+              f"{what}, {name}: recall@10 {recall} within {PQ_RECALL_TOL} "
+              f"of the JAX package's {REF_PQ_RECALL[name]}")
+    single, loop, batched = run["single"], run["loop"], run["batched"]
+    check(np.array_equal(single.ids, loop.ids[0])
+          and np.array_equal(single.dists, loop.dists[0]),
+          f"{what}: single query = first query of the loop")
+    out["loop_vs_batched"] = _agreement(loop.ids, batched.ids)
+    for name in REQUESTS + ("fused",):
+        a = _agreement(run[name].ids, cpu[name].ids)
+        out[f"cpu_agreement_{name}"] = a
+        check(a >= MIN_AGREEMENT,
+              f"{what}: {name} ids agree with the CPU engine: {a}")
+    conv = port["convert"]
+    on = conv.cache_to_numpy(run["engines"]["batched"].store.cache)
+    off = conv.cache_to_numpy(cpu["engines"]["batched"].store.cache)
+    for field in conv.CACHE_FIELDS:
+        check(on[field].dtype == off[field].dtype
+              and np.array_equal(on[field], off[field]),
+              f"{what}: tier-2 {field} after the batched search equals the "
+              "CPU engine's")
+    check(on["slab"].dtype == np.uint8
+          and on["slab"].shape == (shape.cache, PQ_SUBSPACES),
+          f"{what}: slab of uint8 codes")
+    eng = run["engines"]["batched"]
+    out["cache_bytes"] = eng.cache_bytes()
+    check(out["cache_bytes"] == shape.cache * PQ_SUBSPACES,
+          f"{what}: tier-2 bytes {out['cache_bytes']} = "
+          f"{shape.cache} x {PQ_SUBSPACES}")
+    bs = batched.batch_stats
+    check(bs.n_db == bs.n_phases + 1,
+          f"{what}: one rerank access for the batch ({bs.n_db} accesses, "
+          f"{bs.n_phases} load phases)")
+    fused_eng = run["engines"]["fused"]
+    payload, scales = fused_eng._payload
+    check(payload.dtype == torch.uint8 and payload.is_cuda
+          and tuple(payload.shape) == (shape.n, PQ_SUBSPACES)
+          and scales is None,
+          f"{what}: the fused payload is ({shape.n}, {PQ_SUBSPACES}) uint8 "
+          f"codes with no float32 or int8 table ({payload.dtype}, "
+          f"{tuple(payload.shape)})")
+    cb = fused_eng.store.cache.codebook
+    check(cb.is_cuda and tuple(cb.shape) == (PQ_SUBSPACES, 256,
+                                             shape.dim // PQ_SUBSPACES),
+          f"{what}: the codebook sits on the card beside the payload")
+    out["payload_bytes"] = payload.numel()
+    out["codebook_bytes"] = cb.numel() * 4
+    for name, form in (("batched", "adc_gather_distance_batch"),
+                       ("loop", "adc_gather_distance"),
+                       ("single", "adc_gather_distance"),
+                       ("fused", "adc_gather_distance")):
+        n = run["launches"][name][form]
+        check(n > 0, f"{what}: {form} launched in the {name} run ({n})")
+    out.update(n_db_batched=bs.n_db, n_db_loop=loop.batch_stats.n_db,
+               n_db_fused=run["fused"].batch_stats.n_db,
+               n_phases_batched=bs.n_phases,
+               items_fetched_batched=bs.items_fetched)
+    return out
+
+
+def check_rerank_access(port, shape: Shape, X, graph, Q,
+                        codebook=None) -> dict:
     """On a tier 2 holding the whole corpus no load phase happens, so the
     exact rerank is the only tier-3 access: one for a single query (host
     or fused driver) and one for a batch."""
     E = port["engine"]
     out = {}
-    for precision in QUANT:
+    for precision in QUANT + ("pq",):
         for fused in (False, True):
-            eng = E.WebANNSEngine(X, graph, E.EngineConfig(
+            source, extra = X, {}
+            if precision == "pq":
+                source = port["InMemoryBackend"](X)
+                source.codebook = codebook
+                extra = dict(pq_subspaces=codebook.n_subspaces,
+                             rerank_alpha=PQ_ALPHA)
+            eng = E.WebANNSEngine(source, graph, E.EngineConfig(
                 cache_capacity=shape.n, ef_search=shape.ef, device="cuda",
-                precision=precision, fused=fused))
+                precision=precision, fused=fused, **extra))
             eng.warm_cache()
             one = eng.search(E.SearchRequest(query=Q[0], k=shape.k))
             key = f"{precision}{'_fused' if fused else ''}"
@@ -633,6 +817,96 @@ def time_dequant_kernels(port, shape: Shape, dev, rng, launches,
     return rows
 
 
+# ADC timing: each call draws its tables and ids afresh, so its tables
+# come from HBM as the bound assumes: 100 batched calls read 630 MB of
+# tables; the single form's tables are 192 KiB, so it takes 600 calls
+# (115 MB, twice the L2). The codes table has a million rows (192 MB).
+ADC_COLD_ROWS = 1_000_000
+ADC_SINGLE_CALLS = 600
+ADC_PLAIN_CALLS = 20  # the plain version is ~200 launches a call
+
+
+def adc_bytes(codes: torch.Tensor, luts: torch.Tensor,
+              ids: torch.Tensor) -> int:
+    """The bytes one ADC call must move: of each query's tables, only the
+    32-byte sectors (8 entries of a 256-entry row) that its valid ids'
+    codes select; each distinct code row; each id read and each distance
+    written once. Staging a query's whole table, as the kernel does, is a
+    choice of its design, not a need of the function."""
+    B, L, M, K = luts.shape
+    valid = ids >= 0
+    q = torch.arange(B, device=ids.device)[:, None].expand_as(ids)[valid]
+    rows = ids[valid].long()
+    sub = torch.arange(M, device=ids.device)
+    sector = (q[:, None] * M + sub) * (K // 8) + (codes[rows].long() >> 3)
+    return (int(torch.unique(sector).numel()) * 32 * L
+            + int(torch.unique(rows).numel()) * M + ids.numel() * 8)
+
+
+def time_adc_kernels(port, shape: Shape, dev, rng, launches, err) -> list:
+    """The ADC kernel's two forms at M = 192, l2, at the path's shapes:
+    the batched form at a hop (32 queries × 32 ids), the single form at
+    a fused bulk load (1 × miss_cap), HBM-cold as above; ``l2_ms``
+    repeats one call on path-sized tables (the 2,500-row slab, the
+    10,000-row payload), which stay in L2."""
+    ops, ref, pq = port["ops"], port["ref"], port["pq"]
+    M = PQ_SUBSPACES
+    cent = torch.from_numpy(rng.standard_normal(
+        (M, 256, shape.dim // M)).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    big = torch.randint(0, 256, (ADC_COLD_ROWS, M), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    rows = []
+    for name, replaces, B, K, path_rows, n_calls in (
+            ("adc_gather_distance_batch",
+             "src/repro/kernels/adc_gather_distance.py:123",
+             shape.batch, shape.degree, shape.cache, COLD_CALLS),
+            ("adc_gather_distance",
+             "src/repro/kernels/adc_gather_distance.py:71",
+             1, shape.miss_cap, shape.n, ADC_SINGLE_CALLS)):
+        fn = getattr(ops, name)
+        plain = getattr(ref, name + "_ref")
+        calls = []
+        for _ in range(n_calls):
+            ids, Q = gd_inputs(rng, ADC_COLD_ROWS, shape, K, dev)
+            ids, Q = ids[:B].contiguous(), Q[:B].contiguous()
+            calls.append((pq.build_lut(Q, cent, "l2"), ids))
+
+        def pick(luts, ids, B=B):
+            return (luts, ids) if B > 1 else (luts[0], ids[0])
+
+        # one add per subspace of every valid id
+        n_bytes = n_ops = 0.0
+        for luts, ids in calls:
+            n_bytes += adc_bytes(big, luts, ids)
+            n_ops += int((ids >= 0).sum()) * M
+        t, by = bound_ms(n_bytes / n_calls, n_ops / n_calls)
+        path_codes = big[:path_rows]
+        luts0, ids0 = calls[0]
+        ids0 = ids0.clamp(max=path_rows - 1)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/adc_gather_distance.cu",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=err[name],
+            ms=device_ms([lambda c=c: fn(big, *pick(*c), "l2")
+                          for c in calls]),
+            plain_ms=device_ms([lambda c=c: plain(big, *pick(*c), "l2")
+                                for c in calls[:ADC_PLAIN_CALLS]], replays=2),
+            bound_ms=t, bound_by=by,
+            # no single PyTorch call computes an ADC sum
+            library_ms=None,
+            l2_ms=device_ms([lambda: fn(path_codes, *pick(luts0, ids0),
+                                        "l2")] * COLD_CALLS),
+            call_ms=call_ms(lambda: fn(path_codes, *pick(luts0, ids0),
+                                       "l2")),
+            M=M, tables_mb_per_call=calls[0][0].numel() * 4 / 1e6,
+        ))
+        del calls
+    return rows
+
+
 def _latency(lat_s) -> dict:
     lat = np.asarray(lat_s) * 1e3
     return dict(n=len(lat), p50_ms=float(np.percentile(lat, 50)),
@@ -766,16 +1040,17 @@ def main() -> int:
           f"atol {GD_ATOL}; merge exact)", flush=True)
 
     # 4. the query path
-    X = port["corpus_embeddings"](shape.n, shape.dim, seed=13)
+    X = port["corpus_embeddings"](shape.n, shape.dim, seed=CORPUS_SEED)
     t0 = time.perf_counter()
     graph = port["build_hnsw"](X, M=shape.M,
-                               ef_construction=shape.ef_construction, seed=0)
+                               ef_construction=shape.ef_construction,
+                               seed=GRAPH_SEED)
     record["hnsw_build_s"] = time.perf_counter() - t0
     print(f"hnsw: N={shape.n} d={shape.dim} M={shape.M} "
           f"efc={shape.ef_construction} built in "
           f"{record['hnsw_build_s']:.1f} s, {graph.n_layers} layers",
           flush=True)
-    Q = make_queries(X, shape.batch, seed=5)
+    Q = make_queries(X, shape.batch, seed=QUERY_SEED)
     # float32: each path below sets the counts to 0 just before it and
     # reads them just after; `launches` sums those readings per kernel
     run = run_query_path(port, shape, "cuda", X, graph, Q)
@@ -826,16 +1101,48 @@ def main() -> int:
             launches[kname] += n
         runs[key] = f_run
         print(f"query path, {key}: {json.dumps(record[key])}", flush=True)
+    # product quantization over one codebook trained here, on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codebook = port["pq"].train_pq(X, n_subspaces=PQ_SUBSPACES,
+                                   seed=PQ_SEED, device="cuda")
+    record["pq_train_s"] = time.perf_counter() - t0
+    print(f"pq: codebook of {PQ_SUBSPACES} subspaces trained on the card in "
+          f"{record['pq_train_s']:.2f} s", flush=True)
+    pq_runs = {}
+    for device in ("cuda", "cpu"):
+        r = run_query_path(port, shape, device, X, graph, Q,
+                           codebook=codebook)
+        f = run_query_path(port, shape, device, X, graph, Q, ("fused",),
+                           fused=True, codebook=codebook)
+        r["fused"], r["fused_s"] = f["fused"], f["fused_s"]
+        r["engines"]["fused"] = f["engines"]["fused"]
+        r["launches"]["fused"] = f["launches"]["fused"]
+        r["launches_total"] = {kname: n + f["launches_total"][kname]
+                               for kname, n in r["launches_total"].items()}
+        pq_runs[device] = r
+    record["query_path_pq"] = check_pq_path(port, shape, X, Q,
+                                            pq_runs["cuda"], pq_runs["cpu"])
+    record["launches"]["pq"] = pq_runs["cuda"]["launches"]
+    record["query_path_s"]["pq"] = {r: pq_runs["cuda"][r + "_s"]
+                                    for r in REQUESTS + ("fused",)}
+    for kname, n in pq_runs["cuda"]["launches_total"].items():
+        launches[kname] += n
+    runs["pq"] = pq_runs["cuda"]
+    print(f"query path, pq: {json.dumps(record['query_path_pq'])}",
+          flush=True)
     for kname, n in launches.items():
         check(n > 0, f"kernel {kname} launched on the query paths ({n})")
     record["launches_total"] = launches
-    record["rerank_access"] = check_rerank_access(port, shape, X, graph, Q)
+    record["rerank_access"] = check_rerank_access(port, shape, X, graph, Q,
+                                                  codebook)
     print(f"launches per path and request: {json.dumps(record['launches'])}",
           flush=True)
 
     # 5. times
     rows = time_kernels(port, shape, dev, rng, launches, err)
     rows += time_dequant_kernels(port, shape, dev, rng, launches, err)
+    rows += time_adc_kernels(port, shape, dev, rng, launches, err)
     record["kernels"] = rows
     engines = {}
     for precision in PRECISIONS:
@@ -844,13 +1151,17 @@ def main() -> int:
         engines[f"{precision}_single"] = ("single", r["single"])
         engines[f"fused_{precision}"] = (
             "single", runs[f"fused_{precision}"]["engines"]["fused"])
+    r = runs["pq"]["engines"]
+    engines["pq_batched"] = ("batched", r["batched"])
+    engines["pq_single"] = ("single", r["single"])
+    engines["fused_pq"] = ("single", r["fused"])
     e2e = time_end_to_end(port, shape, X, engines)
     for name, o in e2e.items():
         print(f"end to end, {name}: {json.dumps(o)}", flush=True)
     record["end_to_end"] = e2e
     record["profile_batched"] = {
         p: profile_batched(port, shape, X, runs[p]["engines"]["batched"])
-        for p in ("float32", "int8")}
+        for p in ("float32", "int8", "pq")}
     print(f"profile, one batched search: "
           f"{json.dumps(record['profile_batched'])}", flush=True)
     out_dir = ROOT / "build"  # git-ignored, beside the kernels' builds

@@ -2,24 +2,26 @@
 objects out (and the tier-2 cache back out as arrays).
 
 An HNSW index is plain arrays (the vectors, the padded neighbor lists,
-the levels and the entry state), and so is a tier-2 cache (the slab at
-its precision, the int8 scales, the id↔slot maps, the clock and the LRU
-stamps), so the two packages exchange them as NumPy arrays and nothing
-of ``repro`` is imported here. The parity tests build a graph once with
-the reference and feed the same arrays to both engines, and start both
-from one tier 2. A quantized tier-3 payload is never carried across: the
-port quantizes the float32 table with its own codec.
+the levels and the entry state), and so are a tier-2 cache (the slab at
+its precision, the int8 scales, the id↔slot maps, the clock, the LRU
+stamps and a pq slab's codebook) and a PQ codebook, so the two packages
+exchange them as NumPy arrays and nothing of ``repro`` is imported here.
+The parity tests build a graph once with the reference and feed the same
+arrays to both engines, start both from one tier 2, and give both one
+codebook. A quantized tier-3 payload is never carried across: the port
+quantizes (or encodes) the float32 table with its own codec.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import quant
 from repro_torch.core.graph import HNSWGraph
+from repro_torch.core.pq import PQCodebook
 from repro_torch.core.store import CacheState
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -59,21 +61,37 @@ def from_reference(
     return graph, table
 
 
-CACHE_FIELDS = ("slab", "scales", "slot_of", "id_of", "clock", "last_used")
+def codebook_from_reference(ref_engine) -> PQCodebook:
+    """The port's :class:`PQCodebook` holding a reference engine's frozen
+    centroids (its ``pq_codebook``), bit for bit; ``ValueError`` if that
+    engine has none."""
+    cb = getattr(ref_engine, "pq_codebook", None)
+    if cb is None:
+        raise ValueError("the reference engine holds no PQ codebook")
+    cent = np.array(cb.centroids, dtype=np.float32, copy=True)
+    if cent.ndim != 3:
+        raise ValueError(f"centroids must be (M, K, dsub), got {cent.shape}")
+    return PQCodebook(centroids=cent)
+
+
+CACHE_FIELDS = ("slab", "scales", "slot_of", "id_of", "clock", "last_used",
+                "codebook")
 
 
 def cache_from_reference(
-    slab: np.ndarray,  # (capacity, d) float32 / float16 / int8
+    slab: np.ndarray,  # (capacity, d) f32 / f16 / int8, or (capacity, M) u8
     scales: np.ndarray,  # (capacity,) float32 for int8, (0,) otherwise
     slot_of: np.ndarray,  # (N,) int32
     id_of: np.ndarray,  # (capacity,) int32
     clock,  # () insertion cursor / LRU tick
     last_used: np.ndarray,  # (capacity,) int32
+    codebook: Optional[np.ndarray] = None,  # (M, 256, dsub): pq slab
     device: DeviceLike = None,
 ) -> CacheState:
     """The port's :class:`CacheState` holding a reference cache's arrays
-    (as NumPy), bit for bit, on ``device``; ``ValueError`` if their
-    shapes or the slab dtype disagree."""
+    (as NumPy, in :data:`CACHE_FIELDS` order), bit for bit, on
+    ``device``; ``ValueError`` if their shapes or the slab dtype
+    disagree."""
     dev = resolve_device(device)
     slab = np.asarray(slab)
     precision = quant.precision_of(torch.from_numpy(slab[:0].copy()).dtype)
@@ -85,6 +103,16 @@ def cache_from_reference(
             f"a {precision} slab {slab.shape} takes scales {want_scales}, "
             f"got {scales.shape}"
         )
+    codebook = np.zeros((0, 0, 0), np.float32) if codebook is None \
+        else np.asarray(codebook, np.float32)
+    if precision == "pq":
+        if codebook.ndim != 3 or codebook.shape[0] != slab.shape[1]:
+            raise ValueError(
+                f"a pq slab {slab.shape} takes an (M, 256, dsub) codebook "
+                f"with M = {slab.shape[1]}, got {codebook.shape}"
+            )
+    elif codebook.size:
+        raise ValueError(f"a {precision} slab carries no codebook")
     id_of = np.asarray(id_of, np.int32)
     last_used = np.asarray(last_used, np.int32)
     if id_of.shape != (cap,) or last_used.shape != (cap,):
@@ -102,6 +130,7 @@ def cache_from_reference(
         clock=torch.tensor(int(np.asarray(clock)), dtype=torch.int64,
                            device=dev),
         last_used=up(last_used),
+        codebook=up(codebook),
     )
 
 

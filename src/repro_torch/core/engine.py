@@ -20,16 +20,20 @@ analytically. A batched request on a fused engine runs it once a query.
 Engine modes (paper §4.2 baselines): ``webanns`` (phased lazy loading)
 and ``webanns-base`` (eager: every expansion's misses fetched at once).
 
-``precision`` sets the tier-2 slab (float32, float16, or int8 with a
-per-row scale; DESIGN.md §7). A quantized search is followed by the
+``precision`` sets the tier-2 slab (float32, float16, int8 with a
+per-row scale, DESIGN.md §7, or ``"pq"``: M uint8 product-quantization
+codes a row, DESIGN.md §12). A quantized search is followed by the
 exact rerank: the top ``k·rerank_alpha`` of the beam are re-fetched from
 tier 3 in ONE counted access (one a batch) and re-scored on the host in
-numpy, as the reference does.
+numpy, as the reference does. A pq session adopts the codebook its
+storage backend carries (a ``codebook`` attribute) or trains one at
+construction, and freezes it; a search builds its queries' ADC lookup
+tables once and the hops read the code slab through the ADC kernel.
 
 The engine runs on the card unless ``EngineConfig.device`` says
-``"cpu"``; without CUDA the default raises. PQ, sharding, metadata
-filters, mutation and persistence come with later slices of the port
-and raise ``NotImplementedError`` naming their ROADMAP item.
+``"cpu"``; without CUDA the default raises. Sharding, metadata filters,
+mutation and persistence come with later slices of the port and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import pq, quant
 from repro_torch.core import search as S
 from repro_torch.core.graph import HNSWGraph
 from repro_torch.core.hnsw import build_hnsw
@@ -141,12 +145,15 @@ class EngineConfig:
     # fused=True runs single queries with the tier-3 payload on the device
     # (webanns mode only)
     fused: bool = False
-    # tier-2 slab precision: 'float32' | 'float16' | 'int8' (aliases
-    # through quant.canonical_precision). Quantized modes rerank the top
-    # k·rerank_alpha exactly against tier 3; rerank_alpha <= 0 disables
-    # the rerank (quantized distances returned as they are)
+    # tier-2 slab precision: 'float32' | 'float16' | 'int8' | 'pq'
+    # (aliases through quant.canonical_precision). Quantized modes rerank
+    # the top k·rerank_alpha exactly against tier 3; rerank_alpha <= 0
+    # disables the rerank (quantized distances returned as they are)
     precision: str = "float32"
     rerank_alpha: float = 2.0
+    # PQ geometry (precision='pq' only): M subspaces, M code bytes a row;
+    # must divide the vector dimension. An adopted codebook's M wins.
+    pq_subspaces: int = 8
     # not in this slice: must keep its default
     n_shards: int = 1
 
@@ -158,7 +165,15 @@ class EngineConfig:
             )
         self.precision = quant.canonical_precision(self.precision)
         if self.precision == "pq":
-            raise quant.pq_not_ported()
+            if self.pq_subspaces < 1:
+                raise ValueError(
+                    f"pq_subspaces must be >= 1, got {self.pq_subspaces}")
+            if self.n_shards > 1:
+                raise ValueError(
+                    "precision='pq' is served by the loop/batched/fused "
+                    "drivers; the sharded driver (n_shards > 1) carries no "
+                    "PQ code slabs, as in the reference"
+                )
         if self.n_shards != 1:
             raise _not_in_slice(f"n_shards={self.n_shards}", "Sharded driver")
 
@@ -215,10 +230,28 @@ class WebANNSEngine:
             raise ValueError(
                 f"graph covers {graph.size} ids, tier 3 holds {self.n}"
             )
+        # PQ codebook lifecycle (DESIGN.md §12): adopt the storage
+        # backend's frozen codebook, else train one here (seed 0); frozen
+        # thereafter. An adopted codebook's M overrides the config's.
+        self.pq_codebook: Optional[pq.PQCodebook] = None
+        if self.config.precision == "pq":
+            cb = getattr(self.external.base_backend, "codebook", None)
+            if cb is None:
+                cb = pq.train_pq(
+                    self.external.base_backend.fetch(np.arange(self.n)),
+                    n_subspaces=self.config.pq_subspaces, seed=0,
+                    device=self.device,
+                )
+            cb = pq.PQCodebook(np.asarray(
+                getattr(cb, "centroids", cb), np.float32))
+            self.pq_codebook = cb
+            if cb.n_subspaces != self.config.pq_subspaces:
+                self.config = dataclasses.replace(
+                    self.config, pq_subspaces=cb.n_subspaces)
         cap = self.config.cache_capacity or self.n
         self.store = TieredStore(
             self.external, cap, self.config.eviction, device=self.device,
-            precision=self.config.precision,
+            precision=self.config.precision, codebook=self.pq_codebook,
         )
         self.neighbors = torch.as_tensor(
             np.asarray(graph.neighbors, np.int32), device=self.device
@@ -277,7 +310,9 @@ class WebANNSEngine:
         at the session's precision (DESIGN.md §7). Returns the item
         capacity applied."""
         cap = quant.capacity_for_budget(
-            int(budget_bytes), self.dim, self.config.precision)
+            int(budget_bytes), self.dim, self.config.precision,
+            n_subspaces=(self.pq_codebook.n_subspaces
+                         if self.pq_codebook is not None else None))
         cap = min(cap, self.n)
         self.resize_cache(cap, warm=warm)
         return cap
@@ -360,11 +395,19 @@ class WebANNSEngine:
         synchronize(self.device)
         return time.perf_counter()
 
+    def _luts(self, Q: torch.Tensor) -> Optional[torch.Tensor]:
+        """The (B, L, M, 256) ADC lookup tables of a pq search's (B, d)
+        queries, built once a search; None at the other precisions."""
+        if self.pq_codebook is None:
+            return None
+        return pq.build_lut(Q, self.store.cache.codebook, self.config.metric)
+
     def _lazy_layer(
         self, q: torch.Tensor, layer: int, entry_ids: np.ndarray, ef: int,
-        stats: QueryStats, eager: bool,
+        stats: QueryStats, eager: bool, luts: Optional[torch.Tensor] = None,
     ) -> S.SearchState:
-        """Run one layer with phased lazy loading (or eager fetches)."""
+        """Run one layer with phased lazy loading (or eager fetches);
+        ``luts`` (1, L, M, 256) for a pq tier 2."""
         cfg = self.config
         miss_cap = ef + self.graph.max_degree + 1
         entry_np = np.full(max(len(entry_ids), 1), -1, np.int32)
@@ -372,7 +415,7 @@ class WebANNSEngine:
         state = S.make_state(ef, miss_cap, self.n, self.device)
         state = S.seed_state(
             state, q, torch.as_tensor(entry_np, device=self.device),
-            S.cache_tier2(self.store.cache), cfg.metric,
+            S.cache_tier2(self.store.cache, luts), cfg.metric,
         )
         # eager mode (webanns-base): trigger=1 → flush L after every miss
         trigger = 1 if eager else ef
@@ -381,7 +424,7 @@ class WebANNSEngine:
             t0 = self._clock()
             state = S.search_phase(
                 q, self.neighbors[layer], state,
-                S.cache_tier2(self.store.cache), cfg.metric, trigger,
+                S.cache_tier2(self.store.cache, luts), cfg.metric, trigger,
             )
             mc = int(state.miss_count)
             if self.store.eviction == EVICT_LRU:
@@ -411,8 +454,10 @@ class WebANNSEngine:
     def _batched_lazy_layer(
         self, Q: torch.Tensor, layer: int, entry_ids: np.ndarray, ef: int,
         per_stats: List[QueryStats], bstats: BatchStats, eager: bool,
+        luts: Optional[torch.Tensor] = None,
     ) -> S.SearchState:
-        """One layer of the batched phased-lazy driver (DESIGN.md §5)."""
+        """One layer of the batched phased-lazy driver (DESIGN.md §5);
+        ``luts`` (B, L, M, 256) for a pq tier 2."""
         cfg = self.config
         miss_cap = ef + self.graph.max_degree + 1
         trigger = 1 if eager else ef
@@ -422,14 +467,14 @@ class WebANNSEngine:
         )
         states = S.batch_seed_state(
             states, Q, torch.as_tensor(entry_ids, device=self.device),
-            S.cache_tier2(self.store.cache), cfg.metric,
+            S.cache_tier2(self.store.cache, luts), cfg.metric,
         )
         bstats.t_in_mem += self._clock() - t0
         for _ in range(cfg.max_phases):
             t0 = self._clock()
             states = S.batch_search_phase(
                 Q, self.neighbors[layer], states,
-                S.cache_tier2(self.store.cache), cfg.metric, trigger,
+                S.cache_tier2(self.store.cache, luts), cfg.metric, trigger,
             )
             mc = states.miss_count.cpu().numpy()
             if self.store.eviction == EVICT_LRU:
@@ -461,10 +506,16 @@ class WebANNSEngine:
 
     def _fused_payload(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The tier-3 payload on the device at the session's precision
-        (quantized by the port's own codec; int8 with its scales), read
+        (quantized by the port's own codec; int8 with its scales; at pq
+        the (N, M) uint8 codes alone, whose codebook is tier 2's), read
         from the storage medium once, uncounted, as an init-stage load."""
         if self._payload is None:
             X = self.external.base_backend.fetch(np.arange(self.n))
+            if self.pq_codebook is not None:
+                codes = pq.encode_np(X, self.pq_codebook.centroids)
+                self._payload = (torch.as_tensor(codes, device=self.device),
+                                 None)
+                return self._payload
             payload, scales = quant.quantize_np(X, self.config.precision)
             self._payload = (
                 torch.as_tensor(payload, device=self.device),
@@ -526,15 +577,17 @@ class WebANNSEngine:
         stats = QueryStats()
         qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
         t_db0 = self.external.stats.modeled_time
+        luts = self._luts(qt[None])
         entry = np.array([self.graph.entry_point], np.int32)
         # upper layers: beam of ef_upper (greedy for 1), lazily loaded too
         for lc in range(self.graph.max_level, 0, -1):
-            st = self._lazy_layer(qt, lc, entry, cfg.ef_upper, stats, eager)
+            st = self._lazy_layer(qt, lc, entry, cfg.ef_upper, stats, eager,
+                                  luts)
             best = st.beam.ids[: cfg.ef_upper].cpu().numpy()
             entry = best[best >= 0][:1] if (best >= 0).any() else entry
             stats.n_hops += int(st.n_hops)
             stats.n_dist += int(st.n_dist)
-        st = self._lazy_layer(qt, 0, entry, max(ef, k), stats, eager)
+        st = self._lazy_layer(qt, 0, entry, max(ef, k), stats, eager, luts)
         stats.n_hops += int(st.n_hops)
         stats.n_dist += int(st.n_dist)
         stats.n_visited = stats.n_dist  # every visited id gets a distance
@@ -592,10 +645,11 @@ class WebANNSEngine:
         per_stats = [QueryStats() for _ in range(B)]
         Qt = torch.as_tensor(Q, device=self.device)
         t_db0 = self.external.stats.modeled_time
+        luts = self._luts(Qt)
         entry = np.full((B, 1), self.graph.entry_point, np.int32)
         for lc in range(self.graph.max_level, 0, -1):
             st = self._batched_lazy_layer(
-                Qt, lc, entry, cfg.ef_upper, per_stats, bstats, eager
+                Qt, lc, entry, cfg.ef_upper, per_stats, bstats, eager, luts
             )
             best = st.beam.ids[:, : cfg.ef_upper].cpu().numpy()
             hops = st.n_hops.cpu().numpy()
@@ -607,7 +661,7 @@ class WebANNSEngine:
                 per_stats[b].n_hops += int(hops[b])
                 per_stats[b].n_dist += int(ndist[b])
         st = self._batched_lazy_layer(
-            Qt, 0, entry, max(ef, k), per_stats, bstats, eager
+            Qt, 0, entry, max(ef, k), per_stats, bstats, eager, luts
         )
         hops = st.n_hops.cpu().numpy()
         ndist = st.n_dist.cpu().numpy()

@@ -21,14 +21,16 @@ XLA computes ``max|x| · fl32(1/127)`` — one ulp apart in a few percent
 of rows. :func:`quantize` (tier 2) follows the jitted form and
 :func:`quantize_np` (the fused driver's tier-3 payload) the numpy one.
 
-``"pq"`` is a known name whose use raises ``NotImplementedError``: product
-quantization is ROADMAP A.5.
+``"pq"`` (product quantization, DESIGN.md §12) stores M uint8 codes a
+row, encoded through a trained codebook by :mod:`repro_torch.core.pq`:
+its slab dtype and byte accounting live here, while :func:`quantize` and
+:func:`quantize_np` refuse it, as the reference's per-row codecs do.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +47,10 @@ _ALIASES = {
 # one f32 scale per vector rides along with int8 payloads
 SCALE_BYTES = 4
 
+# default number of PQ subspaces when a caller asks for "pq" capacity
+# without saying how many — matches EngineConfig.pq_subspaces
+DEFAULT_PQ_SUBSPACES = 8
+
 # float32 1/127: the factor of the tier-2 codec's scale (see quantize)
 _INV_127 = float(np.float32(1.0 / 127.0))
 
@@ -52,14 +58,8 @@ _SLAB_DTYPES = {
     "float32": torch.float32,
     "float16": torch.float16,
     "int8": torch.int8,
+    "pq": torch.uint8,  # one code byte per subspace
 }
-
-
-def pq_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "precision='pq' is not ported yet: see ROADMAP.md queue A, item 5 "
-        "(PQ)"
-    )
 
 
 def canonical_precision(precision: str) -> str:
@@ -72,16 +72,19 @@ def canonical_precision(precision: str) -> str:
         ) from None
 
 
-def _ported(precision: str) -> str:
+def _scalar_codec(precision: str) -> str:
     p = canonical_precision(precision)
     if p == "pq":
-        raise pq_not_ported()
+        raise ValueError(
+            "pq rows are encoded through a trained codebook — use "
+            "repro_torch.core.pq.encode/encode_np, not quantize_*"
+        )
     return p
 
 
 def slab_dtype(precision: str) -> torch.dtype:
     """Storage dtype of a slab at ``precision``."""
-    return _SLAB_DTYPES[_ported(precision)]
+    return _SLAB_DTYPES[canonical_precision(precision)]
 
 
 def precision_of(dtype: torch.dtype) -> str:
@@ -92,19 +95,33 @@ def precision_of(dtype: torch.dtype) -> str:
     raise ValueError(f"no precision stores {dtype}")
 
 
-def bytes_per_vector(dim: int, precision: str) -> int:
-    """Resident bytes of ONE cached vector, its scale included."""
-    p = _ported(precision)
+def bytes_per_vector(
+    dim: int, precision: str, n_subspaces: Optional[int] = None
+) -> int:
+    """Resident bytes of ONE cached vector, its scale included. A pq row
+    is M code bytes whatever ``dim`` (``n_subspaces``, default
+    :data:`DEFAULT_PQ_SUBSPACES`); the shared codebook is amortized over
+    the corpus and not charged per row."""
+    p = canonical_precision(precision)
     if p == "float32":
         return 4 * dim
     if p == "float16":
         return 2 * dim
+    if p == "pq":
+        m = DEFAULT_PQ_SUBSPACES if n_subspaces is None else int(n_subspaces)
+        if m <= 0:
+            raise ValueError(f"n_subspaces must be > 0, got {m}")
+        return m
     return dim + SCALE_BYTES  # int8 payload + f32 scale
 
 
-def capacity_for_budget(budget_bytes: int, dim: int, precision: str) -> int:
+def capacity_for_budget(
+    budget_bytes: int, dim: int, precision: str,
+    n_subspaces: Optional[int] = None,
+) -> int:
     """How many vectors a byte budget holds at ``precision`` (≥ 1)."""
-    return max(1, int(budget_bytes) // bytes_per_vector(dim, precision))
+    return max(1, int(budget_bytes) // bytes_per_vector(
+        dim, precision, n_subspaces=n_subspaces))
 
 
 # ----------------------------------------------------------- torch codec
@@ -116,7 +133,7 @@ def quantize(
     """Quantize ``(..., d)`` float rows → (payload, per-row scales), on
     the rows' device. Scales are all ones for the float precisions, as
     in the reference's ``quantize_jnp``."""
-    p = _ported(precision)
+    p = _scalar_codec(precision)
     vecs = vecs.to(torch.float32)
     ones = torch.ones(vecs.shape[:-1], dtype=torch.float32,
                       device=vecs.device)
@@ -149,7 +166,7 @@ def quantize_np(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Host-side codec, bit-identical to the reference's ``quantize_np``
     (the scale divides by 127; see the module docstring)."""
-    p = _ported(precision)
+    p = _scalar_codec(precision)
     vecs = np.asarray(vecs, np.float32)
     ones = np.ones(vecs.shape[:-1], np.float32)
     if p == "float32":
@@ -176,7 +193,7 @@ def max_abs_error(row_amax, precision: str = "int8"):
     """Per-row worst-case elementwise reconstruction error, from the
     per-row ``max|x|`` of the original rows: 0 for float32,
     ``max|x| · 2^-11`` for float16, ``(max|x| / 127) / 2`` for int8."""
-    p = _ported(precision)
+    p = canonical_precision(precision)
     row_amax = np.asarray(row_amax, np.float32)
     if p == "float32":
         return np.zeros_like(row_amax)

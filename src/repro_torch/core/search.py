@@ -24,9 +24,11 @@ The kernels of the path carry the work: the distances of every hop and
 of every load phase come from ``ops.gather_distance(_batch)`` over the
 rows where they already live (the tier-2 slab during a phase, the
 fetched rows during a load) — or from ``ops.dequant_gather_distance
-(_batch)`` where those rows are an int8 or float16 slab or payload — and
-the beam merge is ``ops.merge_topk``, whose ``src`` output carries the
-``explored`` flags through the merge.
+(_batch)`` where those rows are an int8 or float16 slab or payload, or
+from ``ops.adc_gather_distance(_batch)`` over the per-query lookup tables
+where they are PQ codes (DESIGN.md §12) — and the beam merge is
+``ops.merge_topk``, whose ``src`` output carries the ``explored`` flags
+through the merge.
 
 The fused driver (:func:`lazy_knn_search_fused`) runs the same phases
 with the tier-3 payload resident on the device: a load phase reads its
@@ -41,7 +43,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import pq, quant
 from repro_torch.core.graph import PAD
 from repro_torch.core.store import CacheState, cache_insert, cache_slots
 from repro_torch.kernels import ops
@@ -81,17 +83,22 @@ class SearchState:
 class Tier2:
     """Where a search reads resident rows: ``table`` rows, addressed by
     ``slots(ids) -> (present, slot)``; an int8 ``table`` carries its
-    per-row ``scales``."""
+    per-row ``scales``, a uint8 PQ code table the searching queries'
+    lookup tables ``luts``."""
 
-    table: torch.Tensor  # (R, d) float32 / float16 / int8
+    table: torch.Tensor  # (R, d) float32 / float16 / int8, or (R, M) uint8
     slots: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
     scales: Optional[torch.Tensor] = None  # (R,) float32 for int8
+    luts: Optional[torch.Tensor] = None  # (B, L, M, 256) float32 for pq
 
 
-def cache_tier2(cache: CacheState) -> Tier2:
-    """Tier 2 as the cache slab: a present id's row is its slot."""
+def cache_tier2(cache: CacheState,
+                luts: Optional[torch.Tensor] = None) -> Tier2:
+    """Tier 2 as the cache slab: a present id's row is its slot. A pq
+    slab is read through ``luts``, the (B, L, M, 256) tables of the
+    searching queries (``pq.build_lut``, built once a search)."""
     return Tier2(cache.slab, lambda ids: cache_slots(cache, ids),
-                 cache.row_scales())
+                 cache.row_scales(), luts)
 
 
 def resident_tier2(vectors: torch.Tensor) -> Tier2:
@@ -103,18 +110,29 @@ def resident_tier2(vectors: torch.Tensor) -> Tier2:
 def _distances(
     table: torch.Tensor, ids: torch.Tensor, Q: torch.Tensor, metric: str,
     scales: Optional[torch.Tensor] = None,
+    luts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, K) distances of ``table[ids[b]]`` to ``Q[b]``, +inf for ids < 0.
 
     A float32 table goes to the gather-distance kernel, an int8 (with its
-    ``scales``) or float16 one to the dequant-gather-distance kernel. One
-    query (the loop and fused drivers) goes through the single-query form
-    of the kernel, a batch through the batched form; the two are one
-    kernel, so they give identical bits."""
+    ``scales``) or float16 one to the dequant-gather-distance kernel, a
+    uint8 PQ code table to the ADC kernel over the queries' ``luts``
+    (which stand for ``Q``: the distance to the decoded row, DESIGN.md
+    §12). One query (the loop and fused drivers) goes through the
+    single-query form of the kernel, a batch through the batched form;
+    the two are one kernel, so they give identical bits."""
     if table.dtype == torch.float32:
         if Q.shape[0] == 1:
             return ops.gather_distance(table, ids[0], Q[0], metric)[None]
         return ops.gather_distance_batch(table, ids, Q, metric)
+    if table.dtype == torch.uint8:
+        if luts is None:
+            raise ValueError("a PQ code table is read through the queries' "
+                             "lookup tables: pass luts")
+        if Q.shape[0] == 1:
+            return ops.adc_gather_distance(table, luts[0], ids[0],
+                                           metric)[None]
+        return ops.adc_gather_distance_batch(table, luts, ids, metric)
     if Q.shape[0] == 1:
         return ops.dequant_gather_distance(
             table, scales, ids[0], Q[0], metric)[None]
@@ -230,7 +248,7 @@ def batch_seed_state(
     usable = valid & present
     dists = _distances(
         tier2.table, torch.where(usable, slots, -1).to(torch.int32), Q,
-        metric, tier2.scales,
+        metric, tier2.scales, tier2.luts,
     )
     beam = beam_merge(states.beam, entry_ids, dists, usable)
     visited = states.visited.scatter(
@@ -285,7 +303,7 @@ def batch_search_phase(
         usable = fresh & present
         dists = _distances(
             tier2.table, torch.where(usable, slots, -1).to(torch.int32),
-            Q, metric, tier2.scales,
+            Q, metric, tier2.scales, tier2.luts,
         )
         merged = beam_merge(beam, nbrs, dists, usable)
         s = dataclasses.replace(
@@ -306,6 +324,7 @@ def batch_load_phase(
     rows: torch.Tensor,  # (B, miss_cap) int32 — row of each id, -1 padded
     metric: str,
     scales: Optional[torch.Tensor] = None,  # (R,) for an int8 table
+    luts: Optional[torch.Tensor] = None,  # (B, L, M, 256) for a pq table
 ) -> SearchState:
     """Merge bulk-loaded rows into each beam (Alg. 1 lines 25–31) and
     clear L. The driver has already inserted them into tier 2. A query
@@ -315,7 +334,7 @@ def batch_load_phase(
     valid = loaded_ids >= 0
     dists = _distances(
         table, torch.where(valid, rows, -1).to(torch.int32), Q, metric,
-        scales,
+        scales, luts,
     )
     beam = beam_merge(states.beam, loaded_ids, dists, valid)
     return dataclasses.replace(
@@ -395,10 +414,11 @@ def load_phase(
     q: torch.Tensor, state: SearchState, loaded_ids: torch.Tensor,
     table: torch.Tensor, rows: torch.Tensor, metric: str,
     scales: Optional[torch.Tensor] = None,
+    luts: Optional[torch.Tensor] = None,
 ) -> SearchState:
     return _first(batch_load_phase(
         q[None], _one(state), loaded_ids[None], table, rows[None], metric,
-        scales,
+        scales, luts,
     ))
 
 
@@ -408,7 +428,7 @@ def load_phase(
 def search_layer_lazy_fused(
     q: torch.Tensor,  # (d,) float32
     neighbors_l: torch.Tensor,  # (N, deg) int32, PAD padded
-    payload: torch.Tensor,  # (N, d) tier-3 payload on the device
+    payload: torch.Tensor,  # (N, d) tier-3 payload, or (N, M) uint8 codes
     payload_scales: Optional[torch.Tensor],  # (N,) for an int8 payload
     cache: CacheState,
     entry_ids: torch.Tensor,  # (k,) int32, -1 padded
@@ -416,6 +436,7 @@ def search_layer_lazy_fused(
     metric: str,
     eviction: int = 0,
     max_phases: int = 256,
+    luts: Optional[torch.Tensor] = None,  # (1, L, M, 256): pq search
 ) -> Tuple[SearchState, CacheState, int, int]:
     """One layer of Algorithm 1 with the tier-3 payload on the device
     (the port of ``repro.core.search.search_layer_lazy_fused``).
@@ -424,30 +445,36 @@ def search_layer_lazy_fused(
     miss list ``L`` from ``payload`` instead of fetching it: its
     distances come from the kernel over the payload with the miss ids as
     rows (``gather_distance`` at float32, ``dequant_gather_distance`` at
-    float16 and int8), and the dequantized rows go into tier 2. The
-    insert runs after every phase, an empty one too (it moves the LRU
-    clock, as the reference's does), and nothing is touched: the
+    float16 and int8, ``adc_gather_distance`` over the query's ``luts``
+    at pq), and the dequantized (or decoded, through tier 2's frozen
+    codebook, the payload's too) rows go into tier 2, which re-encodes a
+    pq row as the reference's insert does. The insert runs after every phase, an empty one too (it moves
+    the LRU clock, as the reference's does), and nothing is touched: the
     reference's fused program has no LRU touch. Returns ``(state, cache,
     n_db, n_fetched)``: one access for each phase that missed.
     """
     n = neighbors_l.shape[0]
     miss_cap = ef + neighbors_l.shape[1] + 1
     state = make_state(ef, miss_cap, n, q.device)
-    state = seed_state(state, q, entry_ids, cache_tier2(cache), metric)
+    state = seed_state(state, q, entry_ids, cache_tier2(cache, luts), metric)
     n_db = n_fetch = 0
     for _ in range(max_phases):
         state = search_phase(
-            q, neighbors_l, state, cache_tier2(cache), metric, ef_trigger=ef
+            q, neighbors_l, state, cache_tier2(cache, luts), metric,
+            ef_trigger=ef,
         )
         mc = int(state.miss_count)
         ids = state.miss_ids
         safe = ids.long().clamp(0, n - 1)
-        scales = None if payload_scales is None else payload_scales[safe]
-        rows = quant.dequantize(payload[safe], scales)
+        if payload.dtype == torch.uint8:
+            rows = pq.decode(payload[safe], cache.codebook)
+        else:
+            scales = None if payload_scales is None else payload_scales[safe]
+            rows = quant.dequantize(payload[safe], scales)
         cache = cache_insert(cache, ids, rows, policy=eviction)
         # the miss ids are the payload's rows
         state = load_phase(q, state, ids, payload, ids, metric,
-                           payload_scales)
+                           payload_scales, luts)
         n_db += int(mc > 0)
         n_fetch += mc
         if mc == 0:
@@ -469,20 +496,25 @@ def lazy_knn_search_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, int], CacheState]:
     """Whole lazy KNN query, all layers, on the device-resident payload:
     ``(dists (k,), ids (k,), (n_db, n_fetched), cache)``. Upper layers
-    descend greedily (ef = 1), as the reference's fused program does."""
+    descend greedily (ef = 1), as the reference's fused program does. A
+    pq payload ((N, M) uint8 codes of tier 2's codebook) is read through
+    the query's lookup tables, built once here for the whole search."""
     n_db = n_fetch = 0
+    luts = None
+    if payload.dtype == torch.uint8:
+        luts = pq.build_lut(q, cache.codebook, metric)[None]
     entry_ids = torch.full((1,), int(entry), dtype=torch.int32,
                            device=q.device)
     for lc in range(neighbors.shape[0] - 1, 0, -1):
         st, cache, db, fc = search_layer_lazy_fused(
             q, neighbors[lc], payload, payload_scales, cache, entry_ids, 1,
-            metric, eviction=eviction,
+            metric, eviction=eviction, luts=luts,
         )
         n_db, n_fetch = n_db + db, n_fetch + fc
         entry_ids = st.beam.ids[:1]
     st, cache, db, fc = search_layer_lazy_fused(
         q, neighbors[0], payload, payload_scales, cache, entry_ids,
-        max(ef, k), metric, eviction=eviction,
+        max(ef, k), metric, eviction=eviction, luts=luts,
     )
     return (st.beam.dists[:k], st.beam.ids[:k], (n_db + db, n_fetch + fc),
             cache)

@@ -4,11 +4,14 @@ Tier 2 is :class:`CacheState`: a fixed-capacity slab on the engine's
 device plus an id→slot map, with FIFO (the paper's prototype) or LRU
 eviction. The slab holds float32, float16 or int8 rows with one float32
 scale each (the ``precision`` knob, DESIGN.md §7): inserts quantize
-through :mod:`repro_torch.core.quant`, lookups dequantize. The lazy
-search computes tier-2 distances straight from the slab —
-:func:`cache_slots` maps ids to slots and the fused (dequant-)gather-
-distance kernel reads the rows there — so a cached row never leaves the
-slab during a search.
+through :mod:`repro_torch.core.quant`, lookups dequantize. At ``"pq"``
+(DESIGN.md §12) the slab holds M uint8 codes a row and the state
+carries the frozen codebook: inserts encode through
+:func:`repro_torch.core.pq.encode`, lookups decode. The lazy search
+computes tier-2 distances straight from the slab — :func:`cache_slots`
+maps ids to slots and the fused (dequant- or ADC-) gather-distance
+kernel reads the rows there — so a cached row never leaves the slab
+during a search.
 
 Tier 3 is :class:`ExternalStore`: exact access counters and the cost
 model ``t_access = t_setup + n_items * t_per_item`` (paper Fig. 3b) over
@@ -27,20 +30,20 @@ behaviour-preserving:
   :meth:`TieredStore.gather_batch` returns the deduplicated union rows
   and per-query positions into them instead of a (B, k, d) copy.
 
-``"pq"`` slabs and invalidation for the mutation lifecycle come in
-later slices of the port (ROADMAP A.3, A.5).
+Invalidation for the mutation lifecycle comes in a later slice of the
+port (ROADMAP queue A, "Mutation and filters").
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import pq, quant
 from repro_torch.core.storage import (
     InMemoryBackend,
     LatencyModel,
@@ -61,14 +64,17 @@ class CacheState:
 
     ``slab`` holds the rows at the cache's precision (its dtype); an int8
     slab carries one float32 dequantization scale a row in ``scales``,
-    the other precisions a (0,) tensor, as the reference does."""
+    the other precisions a (0,) tensor; a pq slab is (capacity, M) uint8
+    codes and carries the (M, 256, dsub) ``codebook``, the others a
+    (0, 0, 0) tensor — as the reference does."""
 
-    slab: torch.Tensor  # (capacity, d) float32 / float16 / int8
+    slab: torch.Tensor  # (capacity, d) f32 / f16 / int8 — or (capacity, M) u8
     scales: torch.Tensor  # (capacity,) float32 if int8, else (0,)
     slot_of: torch.Tensor  # (N,) int32 — slot of id, -1 if absent
     id_of: torch.Tensor  # (capacity,) int32 — id in slot, -1 if empty
     clock: torch.Tensor  # () int64 — insertion cursor (FIFO) / tick (LRU)
     last_used: torch.Tensor  # (capacity,) int32 — LRU timestamps
+    codebook: torch.Tensor  # (M, 256, dsub) float32 if pq, else (0, 0, 0)
 
     @property
     def capacity(self) -> int:
@@ -79,9 +85,12 @@ class CacheState:
         return quant.precision_of(self.slab.dtype)
 
     def nbytes(self) -> int:
-        """Resident tier-2 payload bytes (slab + scales when int8)."""
-        cap, dim = self.slab.shape
-        return int(cap) * quant.bytes_per_vector(int(dim), self.precision)
+        """Resident tier-2 payload bytes (slab + scales when int8). A pq
+        row is its M code bytes: the shared codebook is not charged per
+        row (``quant.bytes_per_vector``)."""
+        cap, width = self.slab.shape  # a pq row's width is its M
+        return int(cap) * quant.bytes_per_vector(
+            int(width), self.precision, n_subspaces=int(width))
 
     def row_scales(self):
         """The scales a distance kernel takes: ``scales`` for int8, None
@@ -91,19 +100,47 @@ class CacheState:
 
 def cache_init(
     n_items: int, capacity: int, dim: int, device: DeviceLike = None,
-    precision: str = "float32",
+    precision: str = "float32", codebook: Optional[pq.PQCodebook] = None,
 ) -> CacheState:
-    capacity = int(max(1, capacity))
+    """An empty tier 2. A ``"pq"`` cache needs its trained
+    :class:`~repro_torch.core.pq.PQCodebook` and raises ``ValueError``
+    without one."""
+    precision = quant.canonical_precision(precision)
     dev = resolve_device(device)
-    dtype = quant.slab_dtype(precision)  # raises for "pq"
-    n_scales = capacity if dtype == torch.int8 else 0
+    if precision != "pq":
+        cent = torch.zeros((0, 0, 0), dtype=torch.float32, device=dev)
+        return _empty_cache(n_items, capacity, dim, precision, cent)
+    if codebook is None:
+        raise ValueError(
+            "a pq cache needs its trained codebook — pass a PQCodebook "
+            "(see repro_torch.core.pq.train_pq)"
+        )
+    if codebook.dim != int(dim):
+        raise ValueError(
+            f"codebook {codebook.centroids.shape} does not cover dim {dim}"
+        )
+    cent = torch.as_tensor(codebook.centroids, dtype=torch.float32,
+                           device=dev)
+    return _empty_cache(n_items, capacity, codebook.n_subspaces, precision,
+                        cent)
+
+
+def _empty_cache(n_items: int, capacity: int, width: int, precision: str,
+                 codebook: torch.Tensor) -> CacheState:
+    """An empty slab of ``width`` elements a row (M codes at pq) on the
+    codebook tensor's device, carrying that tensor."""
+    capacity = int(max(1, capacity))
+    dev = codebook.device
+    n_scales = capacity if precision == "int8" else 0
     return CacheState(
-        slab=torch.zeros((capacity, dim), dtype=dtype, device=dev),
+        slab=torch.zeros((capacity, width), dtype=quant.slab_dtype(precision),
+                         device=dev),
         scales=torch.ones((n_scales,), dtype=torch.float32, device=dev),
         slot_of=torch.full((n_items,), -1, dtype=torch.int32, device=dev),
         id_of=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
         clock=torch.zeros((), dtype=torch.int64, device=dev),
         last_used=torch.zeros((capacity,), dtype=torch.int32, device=dev),
+        codebook=codebook,
     )
 
 
@@ -126,11 +163,13 @@ def cache_lookup(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Membership + gather: (present, float32 vectors (..., d) — garbage
     rows where absent). int8 rows are dequantized against their scale,
-    float16 rows widened."""
+    float16 rows widened, pq codes decoded through the codebook."""
     present, slots = cache_slots(cache, ids)
     vecs = cache.slab[slots]
     if vecs.dtype == torch.int8:
         return present, quant.dequantize(vecs, cache.scales[slots])
+    if vecs.dtype == torch.uint8:
+        return present, pq.decode(vecs, cache.codebook)
     return present, vecs.to(torch.float32)
 
 
@@ -165,7 +204,8 @@ def cache_insert(
 ) -> CacheState:
     """Insert a fetched batch, evicting per ``policy``; updates ``cache``
     in place and returns it. ``vecs`` arrive float32 and are quantized to
-    the slab's precision on the way in.
+    the slab's precision on the way in (encoded through the codebook at
+    pq: re-encoding a decoded row keeps its reconstruction).
 
     FIFO: slots are a ring buffer advanced by the insert cursor. LRU:
     each insert claims the least-recently-used slot (a stable ascending
@@ -208,10 +248,13 @@ def cache_insert(
     cache.slot_of[evicted[evicted >= 0]] = -1
     new_ids = ids[rows]
     cache.slot_of[new_ids.long()] = s.to(torch.int32)
-    payload, row_scales = quant.quantize(vecs[rows], cache.precision)
-    cache.slab[s] = payload
-    if cache.slab.dtype == torch.int8:
-        cache.scales[s] = row_scales
+    if cache.slab.dtype == torch.uint8:
+        cache.slab[s] = pq.encode(vecs[rows], cache.codebook)
+    else:
+        payload, row_scales = quant.quantize(vecs[rows], cache.precision)
+        cache.slab[s] = payload
+        if cache.slab.dtype == torch.int8:
+            cache.scales[s] = row_scales
     cache.id_of[s] = new_ids
     cache.last_used[s] = new_clock.to(torch.int32)
     cache.clock = new_clock
@@ -333,9 +376,10 @@ class TieredStore:
     """Tier 2 (device slab) + tier 3 (host backend) used by the engine.
 
     ``gather(ids)``: look up tier 2; fetch only the misses from tier 3 in
-    ONE access; insert them into tier 2 (quantized at ``precision``);
-    return all rows on the device as float32. This is the bulk phase-2
-    load of the lazy search (Algorithm 1 line 24).
+    ONE access; insert them into tier 2 (quantized at ``precision``, or
+    encoded through ``codebook`` at ``"pq"``); return all rows on the
+    device as float32. This is the bulk phase-2 load of the lazy search
+    (Algorithm 1 line 24).
     """
 
     def __init__(
@@ -345,6 +389,7 @@ class TieredStore:
         eviction: str = "fifo",
         device: DeviceLike = None,
         precision: str = "float32",
+        codebook: Optional[pq.PQCodebook] = None,  # pq only
     ):
         self.external = external
         self.eviction = _EVICTION_NAMES[eviction]
@@ -352,7 +397,7 @@ class TieredStore:
         self.precision = quant.canonical_precision(precision)
         self.cache = cache_init(
             external.n_items, capacity, external.dim, self.device,
-            self.precision,
+            self.precision, codebook=codebook,
         )
         self.hits = 0
         self.misses = 0
@@ -366,10 +411,12 @@ class TieredStore:
         return self.cache.nbytes()
 
     def resize(self, capacity: int) -> None:
-        """Re-initialize tier 2 with a new capacity (cache-size optimizer)."""
-        self.cache = cache_init(
-            self.external.n_items, capacity, self.external.dim, self.device,
-            self.precision,
+        """Re-initialize tier 2 with a new capacity (cache-size optimizer).
+        The precision and the codebook survive: the codebook is frozen
+        corpus state, not cache contents."""
+        self.cache = _empty_cache(
+            self.external.n_items, capacity, int(self.cache.slab.shape[1]),
+            self.precision, self.cache.codebook,
         )
         self.hits = 0
         self.misses = 0
@@ -383,8 +430,8 @@ class TieredStore:
     def gather(self, ids: np.ndarray) -> torch.Tensor:
         """Bulk gather with single-access miss fill: ``(k, d)`` float32
         device rows of ``ids`` ((k,), no padding). A hit is its
-        dequantized slab row, a miss the full-precision fetched row (the
-        reference's rows, ``store.py:586-615``)."""
+        dequantized (or decoded) slab row, a miss the full-precision
+        fetched row (the reference's rows, ``store.py:586-615``)."""
         ids = np.asarray(ids, dtype=np.int32)
         ids_t = self._upload(ids)
         # read (and dequantize) the hits before the insert below can

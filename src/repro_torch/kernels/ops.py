@@ -12,6 +12,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import adc_gather_distance as _adc
 from repro_torch.kernels import dequant_gather_distance as _dq
 from repro_torch.kernels import gather_distance as _gd
 from repro_torch.kernels import ref
@@ -72,6 +73,29 @@ def dequant_gather_distance(
     return ref.dequant_gather_distance_ref(table, scales, ids, q, metric)
 
 
+def adc_gather_distance_batch(
+    codes: torch.Tensor, luts: torch.Tensor, ids: torch.Tensor,
+    metric: str = "l2",
+) -> torch.Tensor:
+    """(B, K) ids × (B, L, M, 256) per-query ADC tables → (B, K)
+    distances to the PQ-coded rows of ``codes``, +inf for ids < 0
+    (DESIGN.md §12)."""
+    if _on_cuda(codes):
+        return _adc.adc_gather_distance_batch_cuda(codes, luts, ids, metric)
+    return ref.adc_gather_distance_batch_ref(codes, luts, ids, metric)
+
+
+def adc_gather_distance(
+    codes: torch.Tensor, lut: torch.Tensor, ids: torch.Tensor,
+    metric: str = "l2",
+) -> torch.Tensor:
+    """(K,) ids × one (L, M, 256) table → (K,) distances: the batched
+    kernel launched at one query, so both forms give the same bits."""
+    if _on_cuda(codes):
+        return _adc.adc_gather_distance_cuda(codes, lut, ids, metric)
+    return ref.adc_gather_distance_ref(codes, lut, ids, metric)
+
+
 def merge_topk(
     dists: torch.Tensor, ids: torch.Tensor, k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -85,11 +109,12 @@ def merge_topk(
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {**_gd.launches, **_dq.launches, "merge_topk": _topk.launches}
+    return {**_gd.launches, **_dq.launches, **_adc.launches,
+            "merge_topk": _topk.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_gd.launches, _dq.launches):
+    for counts in (_gd.launches, _dq.launches, _adc.launches):
         for form in counts:
             counts[form] = 0
     _topk.launches = 0

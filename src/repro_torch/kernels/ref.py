@@ -101,6 +101,56 @@ def dequant_gather_distance_ref(
     )[0]
 
 
+def adc_gather_distance_batch_ref(
+    codes: torch.Tensor,  # (N, M) uint8 PQ codes
+    luts: torch.Tensor,  # (B, L, M, 256) float32, one table per query
+    ids: torch.Tensor,  # (B, K) int32, -1 padded
+    metric: str = "l2",
+) -> torch.Tensor:
+    """(B, K) ADC distances: ``Σ_m luts[b, l, m, codes[ids[b, i], m]]``,
+    summed left to right in float32 one subspace at a time; cos finishes
+    with ``-s1 / (sqrt(s2) + 1e-30)``. +inf where id < 0; ids past the
+    end read the last row. Equals ``pq.adc_distance_batch_np`` bit for
+    bit (exact gathers, then the same chain of IEEE operations)."""
+    B, K = ids.shape
+    N, M = codes.shape
+    if N == 0:
+        return torch.full((B, K), INF, dtype=torch.float32, device=ids.device)
+    L, n_cent = luts.shape[1], luts.shape[3]
+    safe = ids.long().clamp(0, N - 1)
+    sub = torch.arange(M, device=ids.device) * n_cent
+    flat = (sub + codes[safe].long()).reshape(B, 1, K * M)  # (B, 1, K·M)
+    sel = luts.reshape(B, L, M * n_cent).gather(
+        2, flat.expand(B, L, K * M)).reshape(B, L, K, M)  # exact gather
+    acc = torch.zeros((B, L, K), dtype=torch.float32, device=ids.device)
+    for m in range(M):  # sequential float32 sum (the bit-match order)
+        acc = acc + sel[..., m]
+    if metric == "cos":
+        # sqrt and the division are taken in float64 and rounded once to
+        # float32, which is the correctly rounded float32 result on every
+        # device (torch's float32 sqrt on the CPU may be one ulp off)
+        root = torch.sqrt(acc[:, 1].double()).float()
+        den = root + torch.full_like(root, 1e-30)
+        d = (-acc[:, 0].double() / den.double()).float()
+    elif metric in ("l2", "ip"):
+        d = acc[:, 0]
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    return torch.where(ids >= 0, d, torch.full_like(d, INF))
+
+
+def adc_gather_distance_ref(
+    codes: torch.Tensor,  # (N, M) uint8
+    lut: torch.Tensor,  # (L, M, 256) float32, one query's table
+    ids: torch.Tensor,  # (K,) int32, -1 padded
+    metric: str = "l2",
+) -> torch.Tensor:
+    """Single-query form: the batched form at one query (the same
+    bits), equal to ``pq.adc_distance_np``."""
+    return adc_gather_distance_batch_ref(
+        codes, lut[None], ids[None], metric)[0]
+
+
 def merge_topk_ref(
     dists: torch.Tensor,  # (B, M) float32 candidate distances
     ids: torch.Tensor,  # (B, M) int32 global ids, -1 sentinel padded

@@ -11,6 +11,9 @@ gather-distance and dequant-gather-distance kernels sum d float32
 products in another order than the plain versions, so they match to
 rtol 1e-5, atol 1e-4 (the dequantized elements themselves are equal: the
 kernel dequantizes with one unfused multiply, as the plain version does).
+The ADC kernel sums its table entries in the plain version's order with
+IEEE operations, so it must match exactly, and equal the numpy oracle
+``pq.adc_distance_np`` too.
 """
 
 import numpy as np
@@ -19,8 +22,9 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import engine as E
-from repro_torch.core import quant
+from repro_torch.core import pq, quant
 from repro_torch.core.hnsw import build_hnsw
+from repro_torch.core.storage import InMemoryBackend
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.topk import MAX_CANDIDATES
 
@@ -111,6 +115,118 @@ def test_dequant_wrapper_rejects_what_the_kernel_does_not_take(cuda):
             q8.half(), torch.ones(10, device=cuda), ids, Q)
     with pytest.raises(ValueError):
         ops.dequant_gather_distance_batch(q8.float(), None, ids, Q)
+
+
+def _adc_inputs(seed, n, M, B, K, metric, dsub=4):
+    """A random codebook, codes over ``n`` rows, one table per query (by
+    the numpy oracle's builder) and -1-padded ids with one past the end."""
+    rng = np.random.default_rng(seed)
+    cent = rng.standard_normal((M, 256, dsub)).astype(np.float32)
+    codes = rng.integers(0, 256, (n, M)).astype(np.uint8)
+    Q = rng.standard_normal((B, M * dsub)).astype(np.float32)
+    luts = np.stack([pq.build_lut_np(q, cent, metric) for q in Q])
+    ids = rng.integers(-1, n, (B, K)).astype(np.int32)
+    ids[:, -1] = -1
+    ids[0, 0] = n + 5  # past the end: reads the last row, as the oracle
+    return codes, luts, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("M", [32, 192, 8, 20])  # chunks; 16-byte / byte path
+def test_adc_gather_distance_kernel_equals_plain_and_oracle(cuda, metric,
+                                                            M):
+    """Both ADC forms on the card equal the plain version and the numpy
+    oracle under array_equal; M = 192 takes several 32 KiB table chunks
+    (12 at cos)."""
+    codes, luts, ids = _adc_inputs(5, n=300, M=M, B=8, K=97, metric=metric)
+    C, T, I = (torch.from_numpy(a).to(cuda) for a in (codes, luts, ids))
+    before = ops.launch_counts()
+    got = ops.adc_gather_distance_batch(C, T, I, metric)
+    single = ops.adc_gather_distance(C, T[0], I[0], metric)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for form in ("adc_gather_distance", "adc_gather_distance_batch"):
+        assert after[form] == before[form] + 1
+    want = ref.adc_gather_distance_batch_ref(C, T, I, metric)
+    assert torch.equal(got, want)
+    assert torch.equal(single, got[0])
+    assert torch.equal(single, ref.adc_gather_distance_ref(C, T[0], I[0],
+                                                           metric))
+    oracle = pq.adc_distance_batch_np(codes, luts, ids, metric)
+    np.testing.assert_array_equal(got.cpu().numpy(), oracle)
+    assert torch.isinf(got[I < 0]).all()
+
+
+@pytest.mark.cuda
+def test_adc_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    codes = torch.zeros((10, 8), dtype=torch.uint8, device=cuda)
+    luts = torch.zeros((2, 1, 8, 256), device=cuda)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="luts"):
+        ops.adc_gather_distance_batch(codes, luts, ids, "cos")  # L = 2
+    with pytest.raises(ValueError):
+        ops.adc_gather_distance_batch(codes.to(torch.int8), luts, ids)
+    with pytest.raises(ValueError):
+        ops.adc_gather_distance_batch(codes, luts, ids.long())
+    with pytest.raises(ValueError):
+        ops.adc_gather_distance_batch(codes, luts[:, :, :4], ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_pq_codec_on_card_equals_cpu(cuda, metric):
+    """The torch codec's encode and lookup tables give the same bits on
+    the card as on the CPU (one IEEE operation at a time), and so does
+    training (float64 cluster sums)."""
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((300, 64)).astype(np.float32)
+    cb = pq.train_pq(X, n_subspaces=16, n_iters=4, seed=0, device="cpu")
+    on_card = pq.train_pq(X, n_subspaces=16, n_iters=4, seed=0, device=cuda)
+    np.testing.assert_array_equal(on_card.centroids, cb.centroids)
+    cent = torch.from_numpy(cb.centroids)
+    Xt = torch.from_numpy(X)
+    assert torch.equal(pq.encode(Xt.to(cuda), cent.to(cuda)).cpu(),
+                       pq.encode(Xt, cent))
+    assert torch.equal(pq.build_lut(Xt[:5].to(cuda), cent.to(cuda),
+                                    metric).cpu(),
+                       pq.build_lut(Xt[:5], cent, metric))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,fused", [("batched", False), ("loop", False),
+                                        ("loop", True)])
+def test_pq_engine_on_card_matches_cpu(cuda, mode, fused):
+    """The pq paths on the card against the same engine on the CPU, with
+    one codebook: equal ids, reranked distances and access counts, a
+    bit-equal tier 2, and the ADC kernel served every run."""
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((600, 64)).astype(np.float32)
+    Q = X[rng.choice(600, 6)] + 0.1 * rng.standard_normal((6, 64)).astype(
+        np.float32)
+    g = build_hnsw(X, M=8, ef_construction=40, seed=0)
+    cb = pq.train_pq(X, n_subspaces=16, n_iters=8, seed=0, device=cuda)
+    res, tier2 = {}, {}
+    ops.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        backend = InMemoryBackend(X)
+        backend.codebook = cb
+        eng = E.WebANNSEngine(backend, g, E.EngineConfig(
+            cache_capacity=150, device=dev, precision="pq",
+            pq_subspaces=16, rerank_alpha=4.0, fused=fused))
+        res[dev] = eng.search(E.SearchRequest(query=Q, k=10, ef=32,
+                                              batch_mode=mode))
+        tier2[dev] = convert.cache_to_numpy(eng.store.cache)
+    counts = ops.launch_counts()
+    form = "adc_gather_distance" + ("" if mode == "loop" else "_batch")
+    assert counts[form] > 0, counts
+    on, off = res["cuda"], res["cpu"]
+    np.testing.assert_array_equal(on.ids, off.ids)
+    np.testing.assert_array_equal(on.dists, off.dists)
+    assert on.batch_stats.n_db == off.batch_stats.n_db
+    for name in convert.CACHE_FIELDS:
+        np.testing.assert_array_equal(tier2["cuda"][name], tier2["cpu"][name],
+                                      err_msg=name)
 
 
 @pytest.mark.cuda

@@ -168,10 +168,11 @@ def test_in_memory_oracle_matches_lazy(small_dataset, small_graph):
 
 
 def test_unported_features_raise(small_dataset, small_graph):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.EngineConfig(device="cpu", precision="pq")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.EngineConfig(device="cpu", precision="pq8")
+    # pq is ported (tests/test_torch_pq.py); with shards it is refused
+    # as the reference refuses it
+    assert P.EngineConfig(device="cpu", precision="pq8").precision == "pq"
+    with pytest.raises(ValueError):
+        P.EngineConfig(device="cpu", precision="pq", n_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.EngineConfig(device="cpu", n_shards=2)
     _, port = _engines(small_dataset, small_graph, "webanns", "fifo")

@@ -49,7 +49,7 @@ def test_every_kernel_source_has_its_wrapper():
 
     stems = {p.stem for p in _build.sources()}
     assert stems == {"gather_distance", "merge_topk",
-                     "dequant_gather_distance"}
+                     "dequant_gather_distance", "adc_gather_distance"}
     wrappers = {p.stem for p in (PACKAGE / "kernels").glob("*.py")}
     assert stems - {"merge_topk"} <= wrappers and "topk" in wrappers
 

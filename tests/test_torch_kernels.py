@@ -324,7 +324,11 @@ def test_ops_run_plain_versions_on_cpu_tensors():
     ops.dequant_gather_distance_batch(
         torch.from_numpy(table).to(torch.float16), None,
         torch.from_numpy(ids), torch.from_numpy(Q))
+    ops.adc_gather_distance_batch(
+        torch.zeros((40, 4), dtype=torch.uint8),
+        torch.zeros((ids.shape[0], 1, 4, 256)), torch.from_numpy(ids))
     assert ops.launch_counts() == {
         "gather_distance": 0, "gather_distance_batch": 0,
         "dequant_gather_distance": 0, "dequant_gather_distance_batch": 0,
+        "adc_gather_distance": 0, "adc_gather_distance_batch": 0,
         "merge_topk": 0}

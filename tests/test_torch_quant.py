@@ -162,9 +162,13 @@ def test_precision_aliases_and_unknown():
 
 
 def test_pq_is_known_but_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.slab_dtype("pq")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.bytes_per_vector(64, "product")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """pq is a precision of the slab (uint8, M bytes a row), but not of
+    the per-row scalar codecs, which refuse it as the reference's do: it
+    is encoded through a codebook (tests/test_torch_pq.py)."""
+    assert P.slab_dtype("pq") == torch.uint8
+    assert P.bytes_per_vector(64, "product") == R.bytes_per_vector(
+        64, "product")
+    with pytest.raises(ValueError):
         P.quantize_np(np.zeros((2, 4), np.float32), "pq8")
+    with pytest.raises(ValueError):
+        R.quantize_np(np.zeros((2, 4), np.float32), "pq8")

@@ -308,7 +308,9 @@ def test_float_slabs_carry_no_scales():
         assert tuple(c.scales.shape) == (0,) and c.row_scales() is None
     c = P.cache_init(10, 4, 3, device=CPU, precision="int8")
     assert c.row_scales() is c.scales and tuple(c.scales.shape) == (4,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a pq slab needs its codebook (tests/test_torch_pq.py), as in the
+    # reference
+    with pytest.raises(ValueError, match="codebook"):
         P.cache_init(10, 4, 3, device=CPU, precision="pq")
 
 
