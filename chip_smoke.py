@@ -12,7 +12,10 @@ the script exits non-zero:
 2. build: every kernel source under ``src/repro_torch/csrc`` with
    ``nvcc``, one process per source, all at once (timed);
 3. kernels against their plain PyTorch versions, on the card, at the
-   shapes of the query path (the dequant kernel at int8 and float16);
+   shapes of the query path (the dequant kernel at int8 and float16), and
+   the flat scan's: the distance matrix at l2/ip/cos within DM_TOL of the
+   metric's scale, the top-k exactly (k = 1, 10 and the cap, ragged N,
+   ties across tiles, all-inf rows, rows with fewer than k finite);
 4. the query paths, on one N = 10,000, d = 768 corpus and one HNSW graph
    at the paper's widths (M = 16, ef_construction = 200), each on fresh
    engines on the card with a cold 25% tier 2 and its launch counts set
@@ -37,9 +40,16 @@ the script exits non-zero:
      engine, a tier 2 of 480,000 bytes bit-equal to the CPU engine's,
      one rerank access, a fused payload of uint8 codes only, and the ADC
      kernel's launches;
+   then the distributed substrate at world size 1 over NCCL: the flat
+   scan (``distributed_brute_force``, k = 10, l2) over the paper's own
+   480,000 x 768 corpus, checked for recall@10 >= 0.999 against brute
+   force with every miss a near tie, against the plain scan on the card,
+   and for one distance-matrix and two top-k launches a search; and its
+   hnsw mode over the first 2,000 rows against the same program over
+   gloo on the CPU (every differing id a near tie);
 5. times: each kernel, its plain version and its bound (CUDA events),
-   and the end-to-end latency of batched, single-query and fused
-   searches at each precision.
+   the end-to-end latency of batched, single-query and fused searches at
+   each precision, and of the flat scan, with the device's idle share.
 
 Standard output ends with four lines: every number of the run as one
 ``record:`` JSON object (also written to ``build/chip_smoke.json``),
@@ -137,13 +147,17 @@ def load_port():
     from repro_torch.core.hnsw import build_hnsw
     from repro_torch.core.storage import InMemoryBackend
     from repro_torch.data.synthetic import corpus_embeddings
+    from repro_torch.core import distributed
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.topk import TOPK_MAX_K
+    from repro_torch.launch import mesh
 
     return dict(
         engine=engine, brute_force_topk=brute_force_topk,
         recall_at_k=recall_at_k, build_hnsw=build_hnsw,
         corpus_embeddings=corpus_embeddings, build=_build, ops=ops, ref=ref,
         convert=convert, quant=quant, pq=pq, InMemoryBackend=InMemoryBackend,
+        distributed=distributed, mesh=mesh, topk_max_k=TOPK_MAX_K,
     )
 
 
@@ -377,6 +391,97 @@ def check_adc_kernels(port, shape: Shape, dev, rng) -> dict:
                 err["adc_gather_distance"] = max(
                     err["adc_gather_distance"],
                     float((one[fin[0]] - one_ref[fin[0]]).abs().max()))
+    return err
+
+
+# distance-matrix kernel vs its plain version (a float32 matmul, TF32
+# off): both sum d products in another order, so they agree to a small
+# multiple of float32 rounding of the terms' scale: |q|^2 + |x|^2 for l2,
+# |q|.|x| for ip, 1 for cos. The error is held in units of that scale.
+DM_TOL = 1e-5
+DM_SHAPES = ((1, 1, 1), (3, 1_000, 5), (32, 4_097, 768), (129, 20_000, 768))
+
+
+def scaled_error(got, want, Q, X, metric: str) -> float:
+    """Largest |got - want| in units of the metric's scale (DM_TOL)."""
+    qn = (Q.double() ** 2).sum(1)[:, None]
+    xn = (X.double() ** 2).sum(1)[None, :]
+    scale = {"l2": qn + xn, "ip": (qn * xn).sqrt(),
+             "cos": torch.ones_like(qn * xn)}[metric]
+    err = (got.double() - want.double()).abs() / scale.clamp_min(1e-30)
+    return float(err.max())
+
+
+def topk_cases(rng, cap: int, dev) -> dict:
+    """(D, k) inputs of the top-k kernel: k = 1, 10 and the cap, N = 1, N
+    no multiple of the 1024-column tile, equal values across tiles, all-inf
+    rows and rows with fewer than k finite entries."""
+    ties = np.round(rng.random((8, 5_000)), 1).astype(np.float32)
+    infs = rng.random((8, 3_000)).astype(np.float32)
+    infs[rng.random(infs.shape) < 0.5] = np.inf
+    infs[0] = np.inf  # all-inf row
+    infs[1, 4:] = np.inf  # fewer than k finite entries, in two tiles
+    infs[1, 2_500] = 0.25
+    wide = rng.standard_normal((32, 20_000)).astype(np.float32)
+    cases = {
+        "N=1,k=1": (rng.random((4, 1)).astype(np.float32), 1),
+        "ragged,k=10": (rng.standard_normal((7, 1_500)).astype(np.float32),
+                        10),
+        "ties,k=1": (ties, 1), "ties,k=10": (ties, 10),
+        f"ties,k={cap}": (ties, cap),
+        "inf rows,k=10": (infs, 10), f"inf rows,k={cap}": (infs, cap),
+        "wide,k=10": (wide, 10), f"wide,k={cap}": (wide, cap),
+        "reduce (32, 10),k=10": (np.round(rng.random((32, 10)), 1).astype(
+            np.float32), 10),
+    }
+    return {name: (torch.from_numpy(D).to(dev), k)
+            for name, (D, k) in cases.items()}
+
+
+def check_flat_kernels(port, dev, rng) -> dict:
+    """The flat scan's kernels against their plain versions on the card:
+    the distance matrix at l2, ip and cos over DM_SHAPES within DM_TOL of
+    the metric's scale; the top-k kernel exactly (values and ids) over
+    ``topk_cases``, its ids distinct and in range; the cap refused one
+    past it."""
+    ops, ref = port["ops"], port["ref"]
+    err = {"distance_matrix": 0.0, "topk": 0.0,
+           "distance_matrix_scaled": 0.0}
+    for B, N, d in DM_SHAPES:
+        Q = torch.from_numpy(rng.standard_normal((B, d)).astype(
+            np.float32)).to(dev)
+        X = torch.from_numpy(rng.standard_normal((N, d)).astype(
+            np.float32)).to(dev)
+        for metric in ("l2", "ip", "cos"):
+            got = ops.distance_matrix(Q, X, metric)
+            want = ref.distance_matrix_ref(Q, X, metric)
+            torch.cuda.synchronize()
+            what = f"distance_matrix {metric} at ({B}, {N}, {d})"
+            check(got.shape == (B, N) and bool(torch.isfinite(got).all()),
+                  f"{what}: shape and finite values")
+            s = scaled_error(got, want, Q, X, metric)
+            check(s <= DM_TOL, f"{what}: error {s} of the scale > {DM_TOL}")
+            err["distance_matrix_scaled"] = max(
+                err["distance_matrix_scaled"], s)
+            err["distance_matrix"] = max(err["distance_matrix"],
+                                         float((got - want).abs().max()))
+    cap = port["topk_max_k"]
+    cases = topk_cases(rng, cap, dev)
+    for name, (D, k) in cases.items():
+        got = ops.topk(D, k)
+        want = ref.topk_ref(D, k)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"topk = plain: {name}")
+        ids = got[1].cpu().numpy()
+        check(all(len(set(r.tolist())) == k for r in ids)
+              and int(ids.max()) < D.shape[1], f"topk ids distinct: {name}")
+    try:
+        ops.topk(cases["wide,k=10"][0], cap + 1)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError(f"check failed: topk took k = {cap + 1} > cap")
     return err
 
 
@@ -659,6 +764,166 @@ def check_rerank_access(port, shape: Shape, X, graph, Q,
     return out
 
 
+# ----------------------------------------------------------- phase 4b
+
+
+# the flat scan at the paper's own size (Wiki-480k, d = 768): it needs no
+# HNSW build, so nothing is cut; the hnsw mode of the same program builds
+# a graph, so it runs on the first HNSW_SUBSTRATE_N rows
+FLAT_N = 480_000
+HNSW_SUBSTRATE_N = 2_000
+FLAT_MIN_RECALL = 0.999
+
+
+def rendezvous(name: str) -> str:
+    """A fresh ``file://`` rendezvous for a process group, in the
+    git-ignored build directory."""
+    path = ROOT / "build" / f"{name}.rendezvous"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    return f"file://{path}"
+
+
+def l2_64(X: np.ndarray, Q: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Float64 l2 distances (B, k) of the rows ``ids`` to the queries."""
+    diff = X[ids].astype(np.float64) - Q.astype(np.float64)[:, None, :]
+    return (diff * diff).sum(-1)
+
+
+def near_tie(X, q, a: int, b: float, tol_rows) -> float:
+    """Gap between row ``a``'s float64 l2 distance to ``q`` and the
+    distance ``b``, in units of the distance kernel's tolerance
+    DM_TOL·(|q|² + |x|²) at the largest |x|² of ``tol_rows``: a near tie
+    is a gap <= 1."""
+    q64 = q.astype(np.float64)
+    da = float(((X[a].astype(np.float64) - q64) ** 2).sum())
+    xn = max(float((X[r].astype(np.float64) ** 2).sum()) for r in tol_rows)
+    return abs(da - b) / (DM_TOL * (float((q64 ** 2).sum()) + xn))
+
+
+def check_flat_scan(port, shape: Shape, X, Q, ids, shard, dev) -> dict:
+    """The flat scan's (B, k) ids against the exact top-k (recall@10 and
+    near ties of every miss) and against the plain scan on the card
+    (every differing position a near tie)."""
+    k = shape.k
+    check(ids.shape == (shape.batch, k)
+          and bool(((ids >= 0) & (ids < X.shape[0])).all()),
+          "flat scan: ids shape and range")
+    truth = port["brute_force_topk"](X, Q, k)
+    recall = port["recall_at_k"](ids, truth)
+    got64 = l2_64(X, Q, ids)
+    worst_miss = 0.0
+    n_miss = 0
+    for b in range(shape.batch):
+        tenth = float(got64[b].max())
+        for m in set(truth[b].tolist()) - set(ids[b].tolist()):
+            n_miss += 1
+            gap = near_tie(X, Q[b], m, tenth, [m, *ids[b].tolist()])
+            worst_miss = max(worst_miss, gap)
+            check(gap <= 1.0, f"flat scan: missed id {m} of query {b} is a "
+                  f"near tie (gap {gap} of the tolerance)")
+    check(recall >= FLAT_MIN_RECALL,
+          f"flat scan: recall@10 {recall} >= {FLAT_MIN_RECALL}")
+    Qd = torch.from_numpy(Q).to(dev)
+    _, plain = port["ref"].distance_topk_ref(Qd, shard.vectors, k, "l2")
+    plain = plain.cpu().numpy()
+    plain64 = l2_64(X, Q, plain)
+    worst_plain = 0.0
+    for b, j in zip(*np.nonzero(plain != ids)):
+        gap = near_tie(X, Q[b], int(ids[b, j]), float(plain64[b, j]),
+                       [int(ids[b, j]), int(plain[b, j])])
+        worst_plain = max(worst_plain, gap)
+        check(gap <= 1.0, f"flat scan: id {ids[b, j]} at ({b}, {j}) differs "
+              f"from the plain scan's {plain[b, j]} by more than a near tie")
+    return {"recall_at_10": recall, "n_missed": n_miss,
+            "worst_miss_gap": worst_miss,
+            "plain_agreement": _agreement(ids, plain),
+            "worst_plain_gap": worst_plain}
+
+
+def run_substrate(port, shape: Shape, dev) -> dict:
+    """The distributed substrate at world size 1 over NCCL: the flat scan
+    over FLAT_N x 768 (``distributed_brute_force``) and the hnsw mode over
+    the first HNSW_SUBSTRATE_N rows (``make_distributed_search``, the
+    paper's M and ef_construction), each with the launch counts set to 0
+    just before it and read just after; then the hnsw mode again over
+    gloo on the CPU, the same index and queries. Returns the checks, the
+    launch counts, and what the timings need (the group stays up)."""
+    D, mesh, ops = port["distributed"], port["mesh"], port["ops"]
+    out = {"record": {}, "launches": {}}
+    t0 = time.perf_counter()
+    X = port["corpus_embeddings"](FLAT_N, shape.dim, seed=CORPUS_SEED)
+    index = D.build_sharded_index(X, 1, hnsw=False)
+    out["record"]["flat_setup_s"] = time.perf_counter() - t0
+    group = mesh.make_shard_group(1, device="cuda",
+                                  init_method=rendezvous("substrate"),
+                                  rank=0)
+    shard = index.shard(0, group.device)
+    del index
+    Q = make_queries(X, shape.batch, seed=QUERY_SEED)
+    search = D.distributed_brute_force(group, metric="l2", k=shape.k)
+    torch.cuda.synchronize()
+    # the launch counts are set to 0 just before the search, read after
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dists, ids = search(Q, shard)
+    ids = ids.cpu().numpy()
+    out["record"]["flat_first_search_s"] = time.perf_counter() - t0
+    n = ops.launch_counts()
+    out["launches"]["flat"] = n
+    check(n["distance_matrix"] == 1 and n["topk"] == 2,
+          f"flat scan: distance_matrix once and topk twice a search ({n})")
+    check(bool(torch.isfinite(dists).all()), "flat scan: finite distances")
+    out["record"]["flat"] = check_flat_scan(port, shape, X, Q, ids, shard,
+                                            dev)
+    print(f"substrate, flat scan over {FLAT_N} x {shape.dim}: "
+          f"{json.dumps(out['record']['flat'])}", flush=True)
+
+    X2 = X[:HNSW_SUBSTRATE_N]
+    t0 = time.perf_counter()
+    index2 = D.build_sharded_index(X2, 1, M=shape.M,
+                                   ef_construction=shape.ef_construction,
+                                   seed=GRAPH_SEED)
+    out["record"]["hnsw_substrate_build_s"] = time.perf_counter() - t0
+    Q2 = make_queries(X2, shape.batch, seed=QUERY_SEED)
+    hnsw = D.make_distributed_search(group, metric="l2", k=shape.k,
+                                     ef=shape.ef, mode="hnsw")
+    ops.reset_launch_counts()
+    _, on = hnsw(Q2, index2.shard(0, group.device))
+    on = on.cpu().numpy()
+    n = ops.launch_counts()
+    out["launches"]["hnsw"] = n
+    check(n["gather_distance"] > 0 and n["gather_distance_batch"] > 0
+          and n["merge_topk"] > 0 and n["topk"] == 1,
+          f"hnsw mode: the gather, merge and top-k kernels served it ({n})")
+    out.update(shard=shard, X=X)
+    mesh.destroy_shard_group()  # the CPU run needs a gloo group
+
+    cpu_group = mesh.make_shard_group(1, device="cpu",
+                                      init_method=rendezvous("substrate_cpu"),
+                                      rank=0)
+    _, off = D.make_distributed_search(cpu_group, metric="l2", k=shape.k,
+                                       ef=shape.ef, mode="hnsw")(
+        Q2, index2.shard(0, "cpu"))
+    mesh.destroy_shard_group()
+    off = off.numpy()
+    off64 = l2_64(X2, Q2, off)
+    worst = 0.0
+    for b, j in zip(*np.nonzero(on != off)):
+        gap = near_tie(X2, Q2[b], int(on[b, j]), float(off64[b, j]),
+                       [int(on[b, j]), int(off[b, j])])
+        worst = max(worst, gap)
+        check(gap <= 1.0, f"hnsw mode: id {on[b, j]} at ({b}, {j}) differs "
+              f"from the CPU run's {off[b, j]} by more than a near tie")
+    truth = port["brute_force_topk"](X2, Q2, shape.k)
+    out["record"]["hnsw"] = {
+        "n": HNSW_SUBSTRATE_N, "cpu_agreement": _agreement(on, off),
+        "worst_gap": worst, "recall_at_10": port["recall_at_k"](on, truth)}
+    print(f"substrate, hnsw mode over {HNSW_SUBSTRATE_N} rows: "
+          f"{json.dumps(out['record']['hnsw'])}", flush=True)
+    return out
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -907,6 +1172,110 @@ def time_adc_kernels(port, shape: Shape, dev, rng, launches, err) -> list:
     return rows
 
 
+FLAT_TIMED_BATCHES = 30
+# the top-k timings rotate over this many (32, 480000) matrices (61 MB
+# each, 184 MB together against the 50 MB L2), so each call reads HBM
+TOPK_COLD_MATRICES = 3
+
+
+def time_flat_kernels(port, shape: Shape, shard, X, dev, launches,
+                      err) -> list:
+    """B.5 at the scan's shape (32, 480000, 768), l2, HBM-cold by size
+    (the table is 1.47 GB); B.6 at the scan's (32, 480000), k = 10, over
+    TOPK_COLD_MATRICES distance matrices of the scan, and at the global
+    reduce's (32, S·k = 10). Each beside its bound, its plain version and
+    one PyTorch call: ``torch.matmul(Q, X.T)`` in full float32 (TF32 off:
+    the ip form but for the sign, the arithmetic of every metric) and
+    ``torch.topk(D, k, largest=False)`` (no tie promise)."""
+    ops, ref = port["ops"], port["ref"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    table = shard.vectors
+    N, d = table.shape
+    B, k = shape.batch, shape.k
+    mats = [torch.from_numpy(make_queries(X, B, seed=700 + i)).to(dev)
+            for i in range(3)]
+    # bytes: Q, X read once, the (B, N) output written once; operations:
+    # the 2·B·N·d of the product, the norms 2·(B + N)·d, 3 an output
+    t, by = bound_ms((B * d + N * d + B * N) * 4,
+                     2 * B * N * d + 2 * (B + N) * d + 3 * B * N)
+    rows = [dict(
+        name="distance_matrix", route="cuda",
+        source="src/repro_torch/csrc/distance_matrix.cu",
+        replaces="src/repro/kernels/distance.py:68",
+        launches=launches["distance_matrix"],
+        max_abs_err=err["distance_matrix"],
+        ms=device_ms([lambda q=q: ops.distance_matrix(q, table, "l2")
+                      for q in mats], replays=3),
+        plain_ms=device_ms([lambda q=q: ref.distance_matrix_ref(q, table,
+                                                                "l2")
+                            for q in mats], replays=3),
+        bound_ms=t, bound_by=by,
+        library_ms=device_ms([lambda q=q: torch.matmul(q, table.T)
+                              for q in mats], replays=3),
+        shape=[B, N, d], max_scaled_err=err["distance_matrix_scaled"],
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+    )]
+    Ds = []
+    for q in mats[:TOPK_COLD_MATRICES]:
+        Ds.append(ops.distance_matrix(q, table, "l2"))
+    small = torch.from_numpy(np.round(np.random.default_rng(3).random(
+        (B, k)), 2).astype(np.float32)).to(dev)
+    # bytes: the matrix read once, (dist, id) written; one ordered compare
+    # an element
+    t, by = bound_ms(B * N * 4 + B * k * 8, B * N)
+    t_r, by_r = bound_ms(B * k * 4 + B * k * 8, B * k)
+    rows.append(dict(
+        name="topk", route="cuda", source="src/repro_torch/csrc/topk.cu",
+        replaces="src/repro/kernels/topk.py:55",
+        launches=launches["topk"], max_abs_err=err["topk"],
+        ms=device_ms([lambda D=D: ops.topk(D, k) for D in Ds * 4]),
+        plain_ms=device_ms([lambda D=D: ref.topk_ref(D, k) for D in Ds],
+                           replays=2),
+        bound_ms=t, bound_by=by,
+        library_ms=device_ms([lambda D=D: torch.topk(D, k, largest=False)
+                              for D in Ds * 4]),
+        shape=[B, N], k=k,
+        reduce_ms=device_ms([lambda: ops.topk(small, k)] * 100),
+        reduce_plain_ms=device_ms([lambda: ref.topk_ref(small, k)] * 100),
+        reduce_library_ms=device_ms(
+            [lambda: torch.topk(small, k, largest=False)] * 100),
+        reduce_bound_ms=t_r, reduce_bound_by=by_r,
+        cap_k=port["topk_max_k"],
+        cap_ms=device_ms([lambda D=D: ops.topk(D, port["topk_max_k"])
+                          for D in Ds]),
+    ))
+    return rows
+
+
+def time_flat_scan(port, shape: Shape, shard, X) -> dict:
+    """The flat scan end to end at world size 1 over NCCL: p50/p99 over
+    FLAT_TIMED_BATCHES batches of 32 fresh queries (host clock; results
+    copied back, so each search has finished), queries/s, and the device's
+    idle share over one search under torch.profiler."""
+    D, mesh = port["distributed"], port["mesh"]
+    group = mesh.make_shard_group(1, device="cuda",
+                                  init_method=rendezvous("flat_timing"),
+                                  rank=0)
+    try:
+        search = D.distributed_brute_force(group, metric="l2", k=shape.k)
+        batches = [make_queries(X, shape.batch, seed=500 + i)
+                   for i in range(FLAT_TIMED_BATCHES + 2)]
+        for q in batches[:2]:  # warm-up
+            search(q, shard)[1].cpu()
+        lat = []
+        for q in batches[2:]:
+            t0 = time.perf_counter()
+            search(q, shard)[1].cpu()
+            lat.append(time.perf_counter() - t0)
+        out = _latency(lat)
+        out["qps"] = shape.batch * 1e3 / out["mean_ms"]
+        out["profile"] = profile_call(
+            lambda: search(batches[0], shard)[1].cpu())
+    finally:
+        mesh.destroy_shard_group()
+    return out
+
+
 def _latency(lat_s) -> dict:
     lat = np.asarray(lat_s) * 1e3
     return dict(n=len(lat), p50_ms=float(np.percentile(lat, 50)),
@@ -974,17 +1343,26 @@ def time_end_to_end(port, shape: Shape, X, engines: dict,
 
 
 def profile_batched(port, shape: Shape, X, eng) -> dict:
-    """One batched search on ``eng`` under torch.profiler: the device's
-    busy time (the sum of its kernels, which run on one stream) against
-    the wall time, and where the kernel and host time go."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One batched search on ``eng`` under torch.profiler
+    (:func:`profile_call`)."""
     E = port["engine"]
     Qr = make_queries(X, shape.batch, seed=300)
+    return profile_call(lambda: eng.search(E.SearchRequest(query=Qr,
+                                                           k=shape.k)))
+
+
+def profile_call(run) -> dict:
+    """``run()`` under torch.profiler: the device's busy time (the sum of
+    its kernels, which run on one stream) against the wall time, and
+    where the kernel and host time go. ``run`` must end in a copy to the
+    host, so the wall covers the device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.search(E.SearchRequest(query=Qr, k=shape.k))
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
     for ev in prof.events():
@@ -1036,8 +1414,11 @@ def main() -> int:
     # 3. kernels against their plain versions
     rng = np.random.default_rng(0)
     err = check_kernels(port, shape, dev, rng)
+    err.update(check_flat_kernels(port, dev, rng))
     print(f"kernels vs plain: max abs err {err} (gather rtol {GD_RTOL}, "
-          f"atol {GD_ATOL}; merge exact)", flush=True)
+          f"atol {GD_ATOL}; distance_matrix within {DM_TOL} of the "
+          f"metric's scale, largest {err['distance_matrix_scaled']}; merge, "
+          "ADC and topk exact)", flush=True)
 
     # 4. the query path
     X = port["corpus_embeddings"](shape.n, shape.dim, seed=CORPUS_SEED)
@@ -1131,11 +1512,18 @@ def main() -> int:
     runs["pq"] = pq_runs["cuda"]
     print(f"query path, pq: {json.dumps(record['query_path_pq'])}",
           flush=True)
-    for kname, n in launches.items():
-        check(n > 0, f"kernel {kname} launched on the query paths ({n})")
-    record["launches_total"] = launches
     record["rerank_access"] = check_rerank_access(port, shape, X, graph, Q,
                                                   codebook)
+    # 4b. the distributed substrate: flat scan at 480k, hnsw mode
+    sub = run_substrate(port, shape, dev)
+    record["substrate"] = sub["record"]
+    for mode, counts in sub["launches"].items():
+        record["launches"][f"substrate_{mode}"] = counts
+        for kname, n in counts.items():
+            launches[kname] += n
+    for kname, n in launches.items():
+        check(n > 0, f"kernel {kname} launched on the paths ({n})")
+    record["launches_total"] = launches
     print(f"launches per path and request: {json.dumps(record['launches'])}",
           flush=True)
 
@@ -1143,7 +1531,13 @@ def main() -> int:
     rows = time_kernels(port, shape, dev, rng, launches, err)
     rows += time_dequant_kernels(port, shape, dev, rng, launches, err)
     rows += time_adc_kernels(port, shape, dev, rng, launches, err)
+    rows += time_flat_kernels(port, shape, sub["shard"], sub["X"], dev,
+                              launches, err)
     record["kernels"] = rows
+    record["flat_scan"] = time_flat_scan(port, shape, sub["shard"], sub["X"])
+    print(f"end to end, flat scan: {json.dumps(record['flat_scan'])}",
+          flush=True)
+    del sub
     engines = {}
     for precision in PRECISIONS:
         r = runs[precision]["engines"]

@@ -6,6 +6,7 @@ the levels and the entry state), and so are a tier-2 cache (the slab at
 its precision, the int8 scales, the id↔slot maps, the clock, the LRU
 stamps and a pq slab's codebook) and a PQ codebook, so the two packages
 exchange them as NumPy arrays and nothing of ``repro`` is imported here.
+So is the distributed substrate's stacked index (``ShardedIndex``).
 The parity tests build a graph once with the reference and feed the same
 arrays to both engines, start both from one tier 2, and give both one
 codebook. A quantized tier-3 payload is never carried across: the port
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
+from repro_torch.core.distributed import ShardedIndex
 from repro_torch.core.graph import HNSWGraph
 from repro_torch.core.pq import PQCodebook
 from repro_torch.core.store import CacheState
@@ -142,3 +144,35 @@ def cache_to_numpy(cache: CacheState) -> Dict[str, np.ndarray]:
            for name in CACHE_FIELDS}
     out["clock"] = np.int32(out["clock"])
     return out
+
+
+SHARDED_FIELDS = ("vectors", "neighbors", "levels", "entry", "max_level",
+                  "row_valid", "base_ids")
+_SHARDED_DTYPES = (np.float32, np.int32, np.int32, np.int32, np.int32, bool,
+                   np.int32)
+
+
+def sharded_index_from_reference(ref_index) -> ShardedIndex:
+    """The port's :class:`ShardedIndex` (host tensors) holding a reference
+    ``ShardedIndex``'s arrays bit for bit (any object with the
+    :data:`SHARDED_FIELDS` arrays and a ``metric``); ``ValueError`` if
+    their leading shard axes or row counts disagree."""
+    arrs = {
+        name: np.array(np.asarray(getattr(ref_index, name)), dtype=dt,
+                       copy=True)
+        for name, dt in zip(SHARDED_FIELDS, _SHARDED_DTYPES)
+    }
+    S, rows = arrs["vectors"].shape[:2]
+    want = {"neighbors": (S, None, rows, None), "levels": (S, rows),
+            "entry": (S,), "max_level": (S,), "row_valid": (S, rows),
+            "base_ids": (S,)}
+    for name, shape in want.items():
+        got = arrs[name].shape
+        if len(got) != len(shape) or any(
+                w is not None and w != g for w, g in zip(shape, got)):
+            raise ValueError(
+                f"{name} has shape {got}, expected {shape} for {S} shards "
+                f"of {rows} rows")
+    return ShardedIndex(**{name: torch.from_numpy(a)
+                           for name, a in arrs.items()},
+                        metric=str(getattr(ref_index, "metric", "l2")))

@@ -175,7 +175,8 @@ class EngineConfig:
                     "PQ code slabs, as in the reference"
                 )
         if self.n_shards != 1:
-            raise _not_in_slice(f"n_shards={self.n_shards}", "Sharded driver")
+            raise _not_in_slice(f"n_shards={self.n_shards}",
+                                "Engine sharded driver")
 
 
 @dataclasses.dataclass

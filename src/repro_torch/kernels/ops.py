@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import adc_gather_distance as _adc
 from repro_torch.kernels import dequant_gather_distance as _dq
+from repro_torch.kernels import distance as _dm
 from repro_torch.kernels import gather_distance as _gd
 from repro_torch.kernels import ref
 from repro_torch.kernels import topk as _topk
@@ -107,14 +108,50 @@ def merge_topk(
     return ref.merge_topk_ref(dists, ids, k)
 
 
+def distance_matrix(
+    Q: torch.Tensor, X: torch.Tensor, metric: str = "l2",
+) -> torch.Tensor:
+    """(B, d) × (N, d) → (B, N) float32 distances in the reference's GEMM
+    form (l2 clamped at 0, ip, cos)."""
+    if _on_cuda(Q):
+        return _dm.distance_matrix_cuda(Q, X, metric)
+    return ref.distance_matrix_ref(Q, X, metric)
+
+
+def distance_topk_ready(
+    Q: torch.Tensor, X: torch.Tensor, metric: str = "l2",
+) -> torch.Tensor:
+    """The distance matrix shaped for a follow-up top-k (the distributed
+    scan's hook), as in the reference: :func:`distance_matrix`."""
+    return distance_matrix(Q, X, metric)
+
+
+def topk(D: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of each row of a (B, N) matrix as ``(dists, ids)``;
+    ties go to the lower column, ids are distinct. ``ValueError`` for k
+    above ``TOPK_MAX_K`` or N on either device."""
+    if _on_cuda(D):
+        return _topk.topk_cuda(D, k)
+    _topk.check_topk_args(D.shape[1], k)
+    return ref.topk_ref(D, k)
+
+
+def distance_topk(
+    Q: torch.Tensor, X: torch.Tensor, k: int, metric: str = "l2",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flat scan: :func:`distance_matrix`, then :func:`topk`."""
+    return topk(distance_matrix(Q, X, metric), k)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {**_gd.launches, **_dq.launches, **_adc.launches,
-            "merge_topk": _topk.launches}
+            **_topk.launches, "distance_matrix": _dm.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_gd.launches, _dq.launches, _adc.launches):
+    for counts in (_gd.launches, _dq.launches, _adc.launches,
+                   _topk.launches):
         for form in counts:
             counts[form] = 0
-    _topk.launches = 0
+    _dm.launches = 0

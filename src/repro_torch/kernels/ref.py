@@ -12,7 +12,40 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core import distances
+
 INF = float("inf")
+
+
+def distance_matrix_ref(
+    Q: torch.Tensor,  # (B, d) float32
+    X: torch.Tensor,  # (N, d) float32
+    metric: str = "l2",
+) -> torch.Tensor:
+    """(B, N) distances in the reference's GEMM form: l2 ``max(|q|² +
+    |x|² − 2q·x, 0)``, ip ``−q·x``, cos ``−q·x / ((|q| + 1e-30)(|x| +
+    1e-30))``, in float32 (a float32 matmul on the card runs without TF32
+    unless asked)."""
+    return distances.distance_matrix(Q.float(), X.float(), metric)
+
+
+def topk_ref(D: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of each row of a (B, N) matrix as ``(dists (B, k),
+    ids (B, k) int32)``: a stable sort of each row and its first k, so ties
+    go to the lower column (``lax.top_k``'s order on negated values), ids
+    are distinct and ``< N``, and a NaN sorts after +inf."""
+    if not 0 <= k <= D.shape[1]:
+        raise ValueError(f"topk: k={k} must lie in [0, N={D.shape[1]}]")
+    dists, ids = torch.sort(D.float(), dim=1, stable=True)
+    return dists[:, :k].contiguous(), ids[:, :k].int().contiguous()
+
+
+def distance_topk_ref(
+    Q: torch.Tensor, X: torch.Tensor, k: int, metric: str = "l2",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest rows of ``X`` to each query: :func:`topk_ref` of
+    :func:`distance_matrix_ref`."""
+    return topk_ref(distance_matrix_ref(Q, X, metric), k)
 
 
 def gather_distance_batch_ref(

@@ -13,7 +13,10 @@ rtol 1e-5, atol 1e-4 (the dequantized elements themselves are equal: the
 kernel dequantizes with one unfused multiply, as the plain version does).
 The ADC kernel sums its table entries in the plain version's order with
 IEEE operations, so it must match exactly, and equal the numpy oracle
-``pq.adc_distance_np`` too.
+``pq.adc_distance_np`` too. The distance-matrix kernel sums d products in
+another order than the plain version's float32 matmul (TF32 off), so it
+matches to 1e-5 of the scale of its terms: |q|² + |x|² for l2, |q|·|x|
+for ip, 1 for cos. The top-k kernel only selects, so it matches exactly.
 """
 
 import numpy as np
@@ -26,7 +29,9 @@ from repro_torch.core import pq, quant
 from repro_torch.core.hnsw import build_hnsw
 from repro_torch.core.storage import InMemoryBackend
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.topk import MAX_CANDIDATES
+from repro_torch.core import distributed as D
+from repro_torch.kernels.topk import MAX_CANDIDATES, TOPK_MAX_K
+from repro_torch.launch import mesh as PM
 
 METRICS = ["l2", "ip", "cos"]
 
@@ -341,3 +346,143 @@ def test_quantized_and_fused_engine_on_card_matches_cpu(cuda, precision,
     for name in convert.CACHE_FIELDS:
         np.testing.assert_array_equal(tier2["cuda"][name], tier2["cpu"][name],
                                       err_msg=name)
+
+
+def scaled_error(got, want, Q, X, metric):
+    """Largest |got − want| in units of the metric's scale (see above)."""
+    qn = (Q.double() ** 2).sum(1)[:, None]
+    xn = (X.double() ** 2).sum(1)[None, :]
+    scale = {"l2": qn + xn, "ip": (qn * xn).sqrt(),
+             "cos": torch.ones_like(qn * xn)}[metric]
+    err = (got.double() - want.double()).abs() / scale.clamp_min(1e-30)
+    return float(err.max()) if err.numel() else 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("B,N,d", [(1, 1, 1), (3, 1000, 5), (32, 4097, 768),
+                                   (129, 20000, 768)])
+def test_distance_matrix_kernel_matches_plain(cuda, metric, B, N, d):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(B + N + d)
+    Q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(
+        cuda)
+    X = torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32)).to(
+        cuda)
+    before = ops.launch_counts()["distance_matrix"]
+    got = ops.distance_matrix(Q, X, metric)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["distance_matrix"] == before + 1
+    want = ref.distance_matrix_ref(Q, X, metric)
+    assert got.shape == (B, N) and bool(torch.isfinite(got).all())
+    assert scaled_error(got, want, Q, X, metric) <= 1e-5
+
+
+def _topk_cases():
+    rng = np.random.default_rng(5)
+    ties = np.round(rng.random((4, 3000)), 1).astype(np.float32)
+    infs = rng.random((6, 2500)).astype(np.float32)
+    infs[rng.random(infs.shape) < 0.5] = np.inf
+    infs[0] = np.inf  # an all-inf row
+    infs[1, 3:] = np.inf  # fewer than k finite entries, across tiles
+    infs[1, 2047] = 0.5
+    return {
+        "n_one": (rng.random((3, 1)).astype(np.float32), 1),
+        "ragged_k10": (rng.standard_normal((7, 1500)).astype(np.float32), 10),
+        "ties_across_tiles_k10": (ties, 10),
+        "ties_across_tiles_cap": (ties, TOPK_MAX_K),
+        "inf_rows_k10": (infs, 10),
+        "inf_rows_cap": (infs, TOPK_MAX_K),
+        "k_one_wide": (rng.standard_normal((2, 480_000)).astype(np.float32),
+                       1),
+        "scan_shape": (rng.random((32, 20_000)).astype(np.float32), 10),
+        "global_reduce": (np.round(rng.random((32, 40)), 1).astype(
+            np.float32), 10),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_topk_cases()))
+def test_topk_kernel_equals_plain(cuda, case):
+    D_np, k = _topk_cases()[case]
+    Dt = torch.from_numpy(D_np).to(cuda)
+    before = ops.launch_counts()["topk"]
+    got = ops.topk(Dt, k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["topk"] == before + 1
+    want = ref.topk_ref(Dt, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for row in got[1].cpu().numpy():  # distinct, in range
+        assert len(set(row.tolist())) == k and row.max() < D_np.shape[1]
+
+
+@pytest.mark.cuda
+def test_topk_cap_on_card(cuda):
+    from repro_torch.kernels import topk as T
+
+    assert T._topk_lib().topk_max_k() == TOPK_MAX_K
+    Dt = torch.rand((2, 5000), device=cuda)
+    ops.topk(Dt, TOPK_MAX_K)
+    with pytest.raises(ValueError, match="at most"):
+        ops.topk(Dt, TOPK_MAX_K + 1)
+    with pytest.raises(ValueError, match="row width"):
+        ops.topk(Dt[:, :3].contiguous(), 4)
+    with pytest.raises(ValueError):
+        ops.topk(Dt.double(), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_distance_topk_on_card_matches_cpu(cuda, metric):
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((5000, 96)).astype(np.float32)
+    Q = rng.standard_normal((16, 96)).astype(np.float32)
+    on = ops.distance_topk(torch.from_numpy(Q).to(cuda),
+                           torch.from_numpy(X).to(cuda), 10, metric)
+    off = ops.distance_topk(torch.from_numpy(Q), torch.from_numpy(X), 10,
+                            metric)
+    D = ref.distance_matrix_ref(torch.from_numpy(Q).double(),
+                                torch.from_numpy(X).double(), metric)
+    on_i, off_i = on[1].cpu(), off[1]
+    for r, c in zip(*torch.nonzero(on_i != off_i, as_tuple=True)):
+        gap = abs(float(D[r, on_i[r, c]]) - float(D[r, off_i[r, c]]))
+        assert gap <= 2e-4, (int(r), int(c), gap)
+    torch.testing.assert_close(on[0].cpu(), off[0], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["flat", "hnsw"])
+def test_substrate_world_of_one_on_card_matches_cpu(cuda, tmp_path, mode):
+    """The substrate at world size 1 over NCCL against the same program
+    over gloo on the CPU: ids equal but for near ties; the flat scan
+    launched the distance kernel once and the top-k kernel twice."""
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((2000, 64)).astype(np.float32)
+    Q = (X[rng.integers(0, 2000, 8)]
+         + 0.2 * rng.standard_normal((8, 64))).astype(np.float32)
+    index = D.build_sharded_index(X, 1, M=8, ef_construction=40,
+                                  hnsw=mode == "hnsw")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        group = PM.make_shard_group(
+            1, device=dev, init_method=f"file://{tmp_path / dev}", rank=0)
+        try:
+            shard = index.shard(0, group.device)
+            search = D.make_distributed_search(group, k=10, ef=32, mode=mode)
+            ops.reset_launch_counts()
+            d_, i_ = search(Q, shard)
+            res[dev] = (d_.cpu(), i_.cpu(), ops.launch_counts())
+        finally:
+            PM.destroy_shard_group()
+    (don, ion, counts), (doff, ioff, _) = res["cuda"], res["cpu"]
+    if mode == "flat":
+        assert counts["distance_matrix"] == 1 and counts["topk"] == 2, counts
+    else:
+        assert counts["gather_distance_batch"] > 0 and counts["topk"] == 1
+    exact = ref.distance_matrix_ref(torch.from_numpy(Q).double(),
+                                    torch.from_numpy(X).double(), "l2")
+    for r, c in zip(*torch.nonzero(ion != ioff, as_tuple=True)):
+        gap = abs(float(exact[r, ion[r, c]]) - float(exact[r, ioff[r, c]]))
+        assert gap <= 2e-4, (int(r), int(c), gap)
+    torch.testing.assert_close(don, doff, rtol=2e-4, atol=2e-4)

@@ -19,9 +19,11 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core import distributed as D
 from repro_torch.core import engine as P
 from repro_torch.core.graph import empty_graph
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as M
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "src" / "repro_torch"
@@ -44,14 +46,17 @@ def _imported_roots(path):
 
 def test_every_kernel_source_has_its_wrapper():
     """Each CUDA source is built by ``_build.sources()`` and bound by a
-    wrapper module of the same name (merge_topk's is ``topk``)."""
+    wrapper module of the same name (merge_topk's is ``topk``,
+    distance_matrix's is ``distance``)."""
     from repro_torch.kernels import _build
 
     stems = {p.stem for p in _build.sources()}
     assert stems == {"gather_distance", "merge_topk",
-                     "dequant_gather_distance", "adc_gather_distance"}
+                     "dequant_gather_distance", "adc_gather_distance",
+                     "distance_matrix", "topk"}
     wrappers = {p.stem for p in (PACKAGE / "kernels").glob("*.py")}
-    assert stems - {"merge_topk"} <= wrappers and "topk" in wrappers
+    assert stems - {"merge_topk", "distance_matrix"} <= wrappers
+    assert {"topk", "distance"} <= wrappers
 
 
 @pytest.mark.parametrize(
@@ -66,7 +71,8 @@ def test_every_module_imports_without_jax():
     modules = [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, prefix="repro_torch.")]
     for name in ("core.engine", "core.quant", "convert",
-                 "kernels.dequant_gather_distance"):
+                 "kernels.dequant_gather_distance", "core.distributed",
+                 "launch.mesh", "kernels.distance"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -126,3 +132,22 @@ def test_engine_runs_on_cpu_only_when_asked():
     assert eng.store.cache.slab.device == torch.device("cpu")
     res = eng.search(P.SearchRequest(query=X[3], k=3, ef=16))
     assert res.ids[0] == 3
+
+
+def test_shard_group_and_distributed_search_raise_without_cuda(no_cuda):
+    """The substrate's entry points default to CUDA (NCCL) too: without a
+    card the group helper, a CUDA group's search program and placing a
+    shard all raise before any process group is touched."""
+    with pytest.raises(RuntimeError, match="is_available"):
+        M.make_shard_group(1)
+    cuda_group = M.ShardGroup(n_shards=1, rank=0,
+                              device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        D.make_distributed_search(cuda_group, mode="flat")
+    with pytest.raises(RuntimeError, match="is_available"):
+        D.distributed_brute_force(cuda_group)
+    X = np.random.default_rng(0).standard_normal((9, 4)).astype(np.float32)
+    index = D.build_sharded_index(X, 1, hnsw=False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        index.shard(0)
+    assert index.shard(0, "cpu").device == torch.device("cpu")

@@ -327,8 +327,9 @@ def test_ops_run_plain_versions_on_cpu_tensors():
     ops.adc_gather_distance_batch(
         torch.zeros((40, 4), dtype=torch.uint8),
         torch.zeros((ids.shape[0], 1, 4, 256)), torch.from_numpy(ids))
+    ops.distance_topk(torch.from_numpy(Q), torch.from_numpy(table), 3)
     assert ops.launch_counts() == {
         "gather_distance": 0, "gather_distance_batch": 0,
         "dequant_gather_distance": 0, "dequant_gather_distance_batch": 0,
         "adc_gather_distance": 0, "adc_gather_distance_batch": 0,
-        "merge_topk": 0}
+        "merge_topk": 0, "topk": 0, "distance_matrix": 0}
