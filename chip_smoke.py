@@ -15,7 +15,10 @@ the script exits non-zero:
    shapes of the query path (the dequant kernel at int8 and float16), and
    the flat scan's: the distance matrix at l2/ip/cos within DM_TOL of the
    metric's scale, the top-k exactly (k = 1, 10 and the cap, ragged N,
-   ties across tiles, all-inf rows, rows with fewer than k finite);
+   ties across tiles, all-inf rows, rows with fewer than k finite); and
+   the embedding bag exactly (sum and mean, with and without weights,
+   float32/float16/bfloat16 tables, d in {1, 3, 64, 768}, S in {1, 32},
+   B in {1, 512}, ids at and above V, all-padding bags, int64 ids);
 4. the query paths, on one N = 10,000, d = 768 corpus and one HNSW graph
    at the paper's widths (M = 16, ef_construction = 200), each on fresh
    engines on the card with a cold 25% tier 2 and its launch counts set
@@ -47,6 +50,18 @@ the script exits non-zero:
    and for one distance-matrix and two top-k launches a search; and its
    hnsw mode over the first 2,000 rows against the same program over
    gloo on the CPU (every differing id a near tie);
+   then the recsys serving slice: ``embedding_bag_padded`` (kernel B.7)
+   over a 1,000,000 x 64 table (DLRM-RM2's) at B = 512 and 262,144
+   against its plain version; DLRM-RM2, DIN, AutoInt and BST at their
+   published configs (DLRM-RM2's 26 tables: 6.66 GB on the card) serving
+   ``click_batches`` at B = 512 (DLRM-RM2 at 262,144 too), logits
+   within rtol 1e-4, atol 1e-5 of the CPU forward on the same parameters,
+   with p50/p99 of the serve step; ``retrieval_score`` over 1,000,000 x
+   64 candidates (ip, k = 100) against the CPU plain scan (every
+   differing id a near tie, scores within DM_TOL of the scale), one
+   distance-matrix and one top-k launch, and both kernels held to their
+   plain versions at this shape (the top-k exactly, its one-block merge
+   of ~1,000 tiles' survivors);
 5. times: each kernel, its plain version and its bound (CUDA events),
    the end-to-end latency of batched, single-query and fused searches at
    each precision, and of the flat scan, with the device's idle share.
@@ -151,6 +166,9 @@ def load_port():
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.topk import TOPK_MAX_K
     from repro_torch.launch import mesh
+    from repro_torch import configs
+    from repro_torch.data.synthetic import click_batches
+    from repro_torch.models import embeddings, recsys
 
     return dict(
         engine=engine, brute_force_topk=brute_force_topk,
@@ -158,6 +176,8 @@ def load_port():
         corpus_embeddings=corpus_embeddings, build=_build, ops=ops, ref=ref,
         convert=convert, quant=quant, pq=pq, InMemoryBackend=InMemoryBackend,
         distributed=distributed, mesh=mesh, topk_max_k=TOPK_MAX_K,
+        configs=configs, click_batches=click_batches, embeddings=embeddings,
+        recsys=recsys,
     )
 
 
@@ -483,6 +503,57 @@ def check_flat_kernels(port, dev, rng) -> dict:
     else:
         raise RuntimeError(f"check failed: topk took k = {cap + 1} > cap")
     return err
+
+
+EB_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def check_embedding_bag_kernel(port, dev, rng) -> dict:
+    """B.7 against its plain version on the card under torch.equal: sum
+    and mean, with and without weights, float32/float16/bfloat16 tables,
+    d in {1, 3, 64, 768} (scalar and 4-wide loads), S in {1, 32}, B in
+    {1, 512}; every case holds ids at and above V, and at B = 512 a bag
+    of nothing but padding (which must come out 0). Then int64 ids,
+    some past 2^31."""
+    ops, ref = port["ops"], port["ref"]
+    V = 1_000
+    n = 0
+    for dtype in EB_DTYPES:
+        for d in (1, 3, 64, 768):
+            table = torch.from_numpy(rng.standard_normal((V, d)).astype(
+                np.float32)).to(dtype).to(dev)
+            for S in (1, 32):
+                for B in (1, 512):
+                    idx = rng.integers(-1, V + 3, (B, S)).astype(np.int32)
+                    idx[0, 0] = V
+                    if B > 1:
+                        idx[1] = -1
+                    idx = torch.from_numpy(idx).to(dev)
+                    w = torch.from_numpy(rng.uniform(-1.0, 2.0, (B, S))
+                                         .astype(np.float32)).to(dev)
+                    for combiner in ("sum", "mean"):
+                        for weights in (None, w):
+                            got = ops.embedding_bag(table, idx, weights,
+                                                    combiner)
+                            want = ref.embedding_bag_ref(table, idx,
+                                                         weights, combiner)
+                            torch.cuda.synchronize()
+                            what = (f"embedding_bag {dtype} d={d} S={S} "
+                                    f"B={B} {combiner} weighted="
+                                    f"{weights is not None}")
+                            check(torch.equal(got, want), f"{what} = plain")
+                            check(B == 1 or not bool(got[1].any()),
+                                  f"{what}: an all-padding bag is 0")
+                            n += 1
+    table = torch.from_numpy(rng.standard_normal((50, 8)).astype(
+        np.float32)).to(dev)
+    idx = torch.tensor([[2**40, 3, -2**40], [49, 50, -1]],
+                       dtype=torch.int64, device=dev)
+    got = ops.embedding_bag(table, idx)
+    check(torch.equal(got, ref.embedding_bag_ref(table, idx))
+          and torch.equal(got[0], table[49] + table[3]),
+          "embedding_bag: int64 ids past 2^31 read row V - 1")
+    return {"embedding_bag": 0.0, "embedding_bag_cases": n + 1}
 
 
 # ------------------------------------------------------------ phase 4
@@ -924,6 +995,225 @@ def run_substrate(port, shape: Shape, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------- phase 4c
+
+
+# the recsys serving slice: the embedding substrate's padded bag (kernel
+# B.7) at DLRM-RM2's table shape, the four architectures' serve step at
+# their published widths, and candidate retrieval (B.5, B.6)
+RECSYS_ARCHS = ("dlrm-rm2", "din", "autoint", "bst")
+RECSYS_SEED = 0  # the parameters' CPU generator and click_batches
+RECSYS_RTOL, RECSYS_ATOL = 1e-4, 1e-5  # card vs CPU logits, TF32 off
+SERVE_STEPS = 30
+# B.7's bags: one 1,000,000 x 64 float32 table (DLRM-RM2's vocab and
+# embed_dim), bags of up to 32 slots, each bag's length uniform in 1..32
+# and the rest -1 (this slice's own choice of multi-hot shape)
+BAG_ROWS, BAG_DIM, BAG_SLOTS = 1_000_000, 64, 32
+RETRIEVAL_K = 100
+
+
+def bag_ids(gen: torch.Generator, B: int, dev) -> torch.Tensor:
+    """(B, BAG_SLOTS) int32 ids uniform over the table, each bag's length
+    uniform in 1..BAG_SLOTS, the slots past it -1."""
+    ids = torch.randint(0, BAG_ROWS, (B, BAG_SLOTS), generator=gen,
+                        device=dev, dtype=torch.int32)
+    length = torch.randint(1, BAG_SLOTS + 1, (B, 1), generator=gen,
+                           device=dev)
+    pad = torch.arange(BAG_SLOTS, device=dev)[None, :] >= length
+    return ids.masked_fill(pad, -1)
+
+
+def _serve_latency(run, n: int) -> dict:
+    """``run()`` n times after two warm-ups, each on the host clock and
+    ended by a synchronise."""
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return _latency(lat)
+
+
+def run_recsys(port, dev) -> dict:
+    """The recsys serving slice on the card, each path with the launch
+    counts set to 0 just before it and read just after:
+
+    - ``embedding_bag_padded`` over a BAG_ROWS x BAG_DIM table at
+      serve_p99's and serve_bulk's batch, against its plain version;
+    - each architecture's ``recsys_forward`` at its published config
+      (parameters from a seeded CPU generator, moved to the card) on
+      ``click_batches(seed=0)`` at serve_p99 (DLRM-RM2 at serve_bulk too),
+      against the CPU forward on the same parameters; p50/p99 of the serve
+      step (numpy batch in, logits on the card) and samples/s;
+    - ``retrieval_score`` at retrieval_cand (1 x 1,000,000 x embed_dim,
+      ip, k = 100) against the CPU plain scan, B.5 and B.6 against their
+      plain versions at this shape, and its p50.
+    """
+    C, E, R, ops = port["configs"], port["embeddings"], port["recsys"], \
+        port["ops"]
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "recsys: float32 matmuls run without TF32")
+    shapes = C.base.RECSYS_SHAPES
+    p99_b = shapes["serve_p99"].params["batch"]
+    bulk_b = shapes["serve_bulk"].params["batch"]
+    out = {"record": {}, "launches": {}}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(RECSYS_SEED)
+
+    # B.7 at DLRM-RM2's table shape
+    table = E.init_embedding_table(
+        BAG_ROWS, BAG_DIM, torch.Generator().manual_seed(RECSYS_SEED),
+        device=dev)["table"]
+    bags = {B: bag_ids(gen, B, dev) for B in (p99_b, bulk_b)}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = {B: E.embedding_bag_padded(table, idx) for B, idx in bags.items()}
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    out["launches"]["embedding_bag"] = n
+    check(n["embedding_bag"] == 2, f"embedding bag: B.7 once a call ({n})")
+    for B, idx in bags.items():
+        check(torch.equal(got[B], port["ref"].embedding_bag_ref(table, idx)),
+              f"embedding_bag_padded at B={B} = plain")
+    out["record"]["embedding_bag"] = {
+        "table": [BAG_ROWS, BAG_DIM], "slots": BAG_SLOTS,
+        "mean_bag_len": float((bags[bulk_b] >= 0).float().sum(1).mean())}
+    out["bag_table"] = table
+    del got, bags
+
+    # the four architectures' serve step
+    serve = {}
+    for arch in RECSYS_ARCHS:
+        cfg = C.get(arch).make_config()
+        t0 = time.perf_counter()
+        model = R.init_recsys(cfg, torch.Generator().manual_seed(RECSYS_SEED),
+                              device="cpu")
+        init_s = time.perf_counter() - t0
+        sizes = [p99_b] + ([bulk_b] if cfg.model == "dlrm" else [])
+        batches = {B: next(port["click_batches"](cfg, B, 1, seed=RECSYS_SEED))
+                   for B in sizes}
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            want = {B: R.recsys_forward(model, b) for B, b in batches.items()}
+        cpu_s = time.perf_counter() - t0
+        param_bytes = sum(p.numel() * 4 for p in model.parameters())
+        torch.cuda.reset_peak_memory_stats()
+        model.to(dev)
+        o = {"config": cfg.name, "param_bytes": param_bytes,
+             "init_s": init_s, "cpu_forward_s": cpu_s}
+        with torch.inference_mode():  # serving: no autograd records
+            for B, batch in batches.items():
+                ops.reset_launch_counts()
+                logits = R.recsys_forward(model, batch)
+                torch.cuda.synchronize()
+                out["launches"][f"{arch}_B{B}"] = ops.launch_counts()
+                what = f"{arch} serve step at B={B}"
+                check(logits.shape == (B,)
+                      and bool(torch.isfinite(logits).all()),
+                      f"{what}: finite logits of shape ({B},)")
+                err = (logits.cpu() - want[B]).abs()
+                check(torch.allclose(logits.cpu(), want[B],
+                                     rtol=RECSYS_RTOL, atol=RECSYS_ATOL),
+                      f"{what}: logits within rtol {RECSYS_RTOL}, atol "
+                      f"{RECSYS_ATOL} of the CPU forward (max err "
+                      f"{float(err.max())})")
+                lat = _serve_latency(
+                    lambda b=batch: R.recsys_forward(model, b), SERVE_STEPS)
+                lat["samples_per_s"] = B * 1e3 / lat["mean_ms"]
+                lat["max_abs_err"] = float(err.max())
+                lat["loss"] = float(R.recsys_loss(model, batch))
+                if B == p99_b or cfg.model == "dlrm":
+                    lat["profile"] = profile_call(
+                        lambda b=batch: R.recsys_forward(model, b).cpu())
+                o[f"B{B}"] = lat
+        o["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        serve[arch] = o
+        print(f"recsys, {arch}: {json.dumps(o)}", flush=True)
+        del model, want, batches
+        torch.cuda.empty_cache()
+    out["record"]["serve"] = serve
+
+    # candidate retrieval at retrieval_cand
+    rc = shapes["retrieval_cand"].params
+    D = C.get("dlrm-rm2").make_config().embed_dim
+    t0 = time.perf_counter()
+    cands = port["corpus_embeddings"](rc["n_candidates"], D,
+                                      seed=CORPUS_SEED)
+    q = make_queries(cands, rc["batch"], seed=QUERY_SEED)
+    setup_s = time.perf_counter() - t0
+    cands_d, q_d = torch.from_numpy(cands).to(dev), torch.from_numpy(q).to(dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    dists, ids = R.retrieval_score(q_d, cands_d, k=RETRIEVAL_K)
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    out["launches"]["retrieval"] = n
+    check(n["distance_matrix"] == 1 and n["topk"] == 1,
+          f"retrieval: the distance matrix once and the top-k once ({n})")
+    check(dists.shape == (rc["batch"], RETRIEVAL_K)
+          and bool(torch.isfinite(dists).all())
+          and bool((dists[:, 1:] >= dists[:, :-1]).all()),
+          "retrieval: finite scores, best first")
+    # B.5 and B.6 against their plain versions at this path's own shape
+    # (one block merging ~1,000 tiles' survivors, which no phase-3 case
+    # reaches), on the same card tensors
+    D_k = ops.distance_matrix(q_d, cands_d, "ip")
+    dm_err = scaled_error(D_k, port["ref"].distance_matrix_ref(
+        q_d, cands_d, "ip"), q_d, cands_d, "ip")
+    check(dm_err <= DM_TOL, f"retrieval: distance_matrix ip at "
+          f"{tuple(q_d.shape)} x {tuple(cands_d.shape)}: error {dm_err} of "
+          f"the scale > {DM_TOL}")
+    top_k, top_r = ops.topk(D_k, RETRIEVAL_K), port["ref"].topk_ref(
+        D_k, RETRIEVAL_K)
+    torch.cuda.synchronize()
+    check(torch.equal(top_k[0], top_r[0]) and torch.equal(top_k[1], top_r[1]),
+          f"retrieval: topk = plain at k={RETRIEVAL_K} over "
+          f"{D_k.shape[1]} columns (values and ids)")
+    check(torch.equal(dists, top_k[0]) and torch.equal(ids, top_k[1]),
+          "retrieval_score = the distance matrix's top-k")
+    del D_k, top_k, top_r
+    ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+    plain_d, plain = R.retrieval_score(torch.from_numpy(q),
+                                       torch.from_numpy(cands), k=RETRIEVAL_K)
+    plain, plain_d = plain.numpy(), plain_d.numpy()
+    ip64 = cands.astype(np.float64) @ q[0].astype(np.float64)
+    qn = float(np.linalg.norm(q[0].astype(np.float64)))
+    # the j-th best score of two versions differs by at most the largest
+    # error over the rows in either top list
+    xn = np.linalg.norm(cands[np.union1d(ids, plain)].astype(np.float64),
+                        axis=1).max()
+    dist_gap = float(np.abs(dists.astype(np.float64) - plain_d).max()
+                     / (DM_TOL * qn * xn))
+    check(dist_gap <= 1.0, f"retrieval: scores differ from the CPU plain "
+          f"scan's by {dist_gap} x DM_TOL of the scale")
+    worst = 0.0
+    for b, j in zip(*np.nonzero(plain != ids)):
+        a, c = int(ids[b, j]), int(plain[b, j])
+        xn = max(float(np.linalg.norm(cands[r].astype(np.float64)))
+                 for r in (a, c))
+        gap = abs(ip64[a] - ip64[c]) / (DM_TOL * qn * xn)
+        worst = max(worst, gap)
+        check(gap <= 1.0, f"retrieval: id {a} at ({b}, {j}) differs from "
+              f"the CPU plain scan's {c} by more than a near tie")
+    lat = _serve_latency(
+        lambda: R.retrieval_score(q_d, cands_d, k=RETRIEVAL_K)[1].cpu(),
+        SERVE_STEPS)
+    lat.update(n=rc["n_candidates"], dim=D, k=RETRIEVAL_K,
+               setup_s=setup_s, plain_agreement=_agreement(ids, plain),
+               worst_gap=worst, dist_gap=dist_gap, dm_scaled_err=dm_err,
+               launches=n, profile=profile_call(
+                   lambda: R.retrieval_score(q_d, cands_d,
+                                             k=RETRIEVAL_K)[1].cpu()))
+    out["record"]["retrieval"] = lat
+    print(f"recsys, retrieval_score: {json.dumps(lat)}", flush=True)
+    return out
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -1247,6 +1537,65 @@ def time_flat_kernels(port, shape: Shape, shard, X, dev, launches,
     return rows
 
 
+# B.7 timing: each call draws its bags afresh over the 256 MB table (five
+# times the L2), so its rows come from HBM as the bound assumes
+BAG_COLD_CALLS = {512: 100, 262_144: 4}
+
+
+def bag_bytes(idx: torch.Tensor) -> int:
+    """The bytes one bag call must move: each distinct valid row once,
+    the ids read and the (B, d) float32 output written once."""
+    n_rows = int(torch.unique(idx[idx >= 0]).numel())
+    return n_rows * BAG_DIM * 4 + idx.numel() * 4 + idx.shape[0] * BAG_DIM * 4
+
+
+def time_embedding_bag(port, table, dev, launches, err) -> list:
+    """B.7 at serve_p99's batch (the row's ``ms``) and serve_bulk's
+    (``bulk_*``), HBM-cold, beside its bound, its plain version and one
+    PyTorch call on the same inputs: ``F.embedding_bag(idx.clamp(min=0),
+    table, mode="sum", per_sample_weights=(idx >= 0).float())`` with the
+    clamp and the mask made before the timed calls."""
+    import torch.nn.functional as Fn
+
+    ops, ref = port["ops"], port["ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    row = dict(name="embedding_bag", route="cuda",
+               source="src/repro_torch/csrc/embedding_bag.cu",
+               replaces="src/repro/kernels/embedding_bag.py:41",
+               launches=launches["embedding_bag"],
+               max_abs_err=err["embedding_bag"])
+    for B, n_calls in BAG_COLD_CALLS.items():
+        calls = [bag_ids(gen, B, dev) for _ in range(n_calls)]
+        lib_in = [(i.clamp(min=0), (i >= 0).float()) for i in calls]
+        n_bytes = sum(bag_bytes(i) for i in calls) / n_calls
+        # one add a column of every valid slot
+        n_ops = sum(int((i >= 0).sum()) for i in calls) * BAG_DIM / n_calls
+        t, by = bound_ms(n_bytes, n_ops)
+        prefix = "" if B == 512 else "bulk_"
+        row.update({
+            prefix + "ms": device_ms(
+                [lambda i=i: ops.embedding_bag(table, i) for i in calls]),
+            prefix + "plain_ms": device_ms(
+                [lambda i=i: ref.embedding_bag_ref(table, i)
+                 for i in calls[:20]], replays=2),
+            prefix + "bound_ms": t, prefix + "bound_by": by,
+            prefix + "library_ms": device_ms(
+                [lambda a=a: Fn.embedding_bag(a[0], table, mode="sum",
+                                              per_sample_weights=a[1])
+                 for a in lib_in]),
+            prefix + "shape": [B, BAG_SLOTS, BAG_DIM],
+            prefix + "mb_moved": n_bytes / 1e6,
+        })
+        # the library sums in its own order: its distance from the kernel
+        lib = Fn.embedding_bag(lib_in[0][0], table, mode="sum",
+                               per_sample_weights=lib_in[0][1])
+        row[prefix + "library_max_abs_diff"] = float(
+            (lib - ops.embedding_bag(table, calls[0])).abs().max())
+        del calls, lib_in, lib
+    return [row]
+
+
 def time_flat_scan(port, shape: Shape, shard, X) -> dict:
     """The flat scan end to end at world size 1 over NCCL: p50/p99 over
     FLAT_TIMED_BATCHES batches of 32 fresh queries (host clock; results
@@ -1307,7 +1656,7 @@ def _timed_searches(port, shape: Shape, X, eng, kind: str, n: int,
 
 
 def time_end_to_end(port, shape: Shape, X, engines: dict,
-                    n_batches: int = 20, n_single: int = 64) -> dict:
+                    n_batches: int = 10, n_single: int = 32) -> dict:
     """Latency of each path's searches on the engine its query path left
     warm. ``engines`` maps a path name to ``(kind, engine)``. After a
     warm-up (one batch or four queries) each path is timed in two rounds
@@ -1415,10 +1764,11 @@ def main() -> int:
     rng = np.random.default_rng(0)
     err = check_kernels(port, shape, dev, rng)
     err.update(check_flat_kernels(port, dev, rng))
+    err.update(check_embedding_bag_kernel(port, dev, rng))
     print(f"kernels vs plain: max abs err {err} (gather rtol {GD_RTOL}, "
           f"atol {GD_ATOL}; distance_matrix within {DM_TOL} of the "
           f"metric's scale, largest {err['distance_matrix_scaled']}; merge, "
-          "ADC and topk exact)", flush=True)
+          "ADC, topk and embedding_bag exact)", flush=True)
 
     # 4. the query path
     X = port["corpus_embeddings"](shape.n, shape.dim, seed=CORPUS_SEED)
@@ -1521,6 +1871,13 @@ def main() -> int:
         record["launches"][f"substrate_{mode}"] = counts
         for kname, n in counts.items():
             launches[kname] += n
+    # 4c. the recsys serving slice
+    rec = run_recsys(port, dev)
+    record["recsys"] = rec["record"]
+    for path, counts in rec["launches"].items():
+        record["launches"][f"recsys_{path}"] = counts
+        for kname, n in counts.items():
+            launches[kname] += n
     for kname, n in launches.items():
         check(n > 0, f"kernel {kname} launched on the paths ({n})")
     record["launches_total"] = launches
@@ -1533,6 +1890,8 @@ def main() -> int:
     rows += time_adc_kernels(port, shape, dev, rng, launches, err)
     rows += time_flat_kernels(port, shape, sub["shard"], sub["X"], dev,
                               launches, err)
+    rows += time_embedding_bag(port, rec.pop("bag_table"), dev, launches,
+                               err)
     record["kernels"] = rows
     record["flat_scan"] = time_flat_scan(port, shape, sub["shard"], sub["X"])
     print(f"end to end, flat scan: {json.dumps(record['flat_scan'])}",

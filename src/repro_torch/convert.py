@@ -6,7 +6,8 @@ the levels and the entry state), and so are a tier-2 cache (the slab at
 its precision, the int8 scales, the id↔slot maps, the clock, the LRU
 stamps and a pq slab's codebook) and a PQ codebook, so the two packages
 exchange them as NumPy arrays and nothing of ``repro`` is imported here.
-So is the distributed substrate's stacked index (``ShardedIndex``).
+So is the distributed substrate's stacked index (``ShardedIndex``), and
+a recsys model's parameter tree (``recsys_from_reference``).
 The parity tests build a graph once with the reference and feed the same
 arrays to both engines, start both from one tier 2, and give both one
 codebook. A quantized tier-3 payload is never carried across: the port
@@ -15,7 +16,7 @@ quantizes (or encodes) the float32 table with its own codec.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ from repro_torch.core.graph import HNSWGraph
 from repro_torch.core.pq import PQCodebook
 from repro_torch.core.store import CacheState
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.recsys import RecsysConfig, init_recsys
 
 
 def from_reference(
@@ -176,3 +178,60 @@ def sharded_index_from_reference(ref_index) -> ShardedIndex:
     return ShardedIndex(**{name: torch.from_numpy(a)
                            for name, a in arrs.items()},
                         metric=str(getattr(ref_index, "metric", "l2")))
+
+
+# parameter groups the reference stacks along a leading axis (AutoInt's
+# W → W layers, which it scans; BST's blocks, which it indexes)
+_STACKED = ("layers", "blocks")
+
+
+def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _flatten(sub, f"{prefix}{key}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _flatten(sub, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def recsys_from_reference(
+    cfg: RecsysConfig, params: Dict[str, Any], device: DeviceLike = None,
+):
+    """The port's recsys model holding a reference parameter tree (its
+    ``init_recsys`` output, leaves as NumPy arrays), bit for bit, on
+    ``device``.
+
+    The weight layout is kept as it is: a projection is ``x @ w`` with
+    ``w`` of shape (d_in, d_out) in both packages, nothing transposed.
+    The stacked groups (AutoInt's ``layers``, BST's ``blocks``) are
+    unstacked along their leading axis into ``layers.<i>.<name>``.
+    ``ValueError`` if the tree's names or shapes differ from the model's.
+    """
+    flat: Dict[str, np.ndarray] = {}
+    for name, leaf in _flatten(params):
+        arr = np.array(leaf, dtype=np.float32)  # a writable copy
+        group, _, rest = name.partition(".")
+        if group in _STACKED:
+            for i in range(arr.shape[0]):
+                flat[f"{group}.{i}.{rest}"] = arr[i]
+        else:
+            flat[name] = arr
+    # shapes only, then uninitialised storage on the device, filled below
+    model = init_recsys(cfg, torch.Generator(), "meta").to_empty(
+        device=resolve_device(device))
+    own = dict(model.named_parameters())
+    if set(own) != set(flat):
+        raise ValueError(
+            f"parameter names differ: only in the reference "
+            f"{sorted(set(flat) - set(own))}, only in the port "
+            f"{sorted(set(own) - set(flat))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            if tuple(p.shape) != flat[name].shape:
+                raise ValueError(f"{name}: the reference's shape "
+                                 f"{flat[name].shape}, the port's "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(flat[name])))
+    return model

@@ -3,6 +3,9 @@
 Every entry point takes ``device=None``, and ``None`` means ``"cuda"``.
 Without CUDA that raises: only an explicit ``device="cpu"`` runs on the
 CPU (the tests pass it), so no run silently falls back to the host.
+``"meta"`` is accepted too: it holds shapes only, no values, so nothing
+can run there (a loader builds a model on it and fills it after
+``to_empty``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "is False; pass device='cpu' to run the plain PyTorch path on "
             "the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 

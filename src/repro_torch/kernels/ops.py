@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import adc_gather_distance as _adc
 from repro_torch.kernels import dequant_gather_distance as _dq
 from repro_torch.kernels import distance as _dm
+from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import gather_distance as _gd
 from repro_torch.kernels import ref
 from repro_torch.kernels import topk as _topk
@@ -143,10 +144,24 @@ def distance_topk(
     return topk(distance_matrix(Q, X, metric), k)
 
 
+def embedding_bag(
+    table: torch.Tensor, idx: torch.Tensor,
+    weights: Optional[torch.Tensor] = None, combiner: str = "sum",
+) -> torch.Tensor:
+    """(B, S) ids, -1 padded, over a (V, d) table → (B, d) float32 bags:
+    the sum (or ``"mean"``) of the valid slots' rows, each times its
+    weight where ``weights`` are given; ids at or above V read row V − 1.
+    A weighted bag runs the kernel too."""
+    if _on_cuda(table):
+        return _eb.embedding_bag_cuda(table, idx, weights, combiner)
+    return ref.embedding_bag_ref(table, idx, weights, combiner)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {**_gd.launches, **_dq.launches, **_adc.launches,
-            **_topk.launches, "distance_matrix": _dm.launches}
+            **_topk.launches, "distance_matrix": _dm.launches,
+            "embedding_bag": _eb.launches}
 
 
 def reset_launch_counts() -> None:
@@ -155,3 +170,4 @@ def reset_launch_counts() -> None:
         for form in counts:
             counts[form] = 0
     _dm.launches = 0
+    _eb.launches = 0

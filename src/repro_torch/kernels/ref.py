@@ -8,7 +8,7 @@ the CPU tests hold the plain versions to the JAX package's oracles.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -226,3 +226,39 @@ def merge_topk_ref(
         torch.where(ok, order.gather(1, sel).int(),
                     torch.full_like(i_s[:, :k], -1)),
     )
+
+
+def embedding_bag_ref(
+    table: torch.Tensor,  # (V, d) float32 / float16 / bfloat16
+    idx: torch.Tensor,  # (B, S) int32 or int64, -1 padded
+    weights: Optional[torch.Tensor] = None,  # (B, S) or None
+    combiner: str = "sum",
+) -> torch.Tensor:
+    """Padded multi-hot embedding bag: (B, d) float32.
+
+    Ids are clipped to [0, V − 1] and rows widened to float32; each valid
+    slot (id >= 0) adds its row, times its weight where weights are given,
+    one slot at a time in slot order from +0.0, so each column is the same
+    chain of IEEE operations as the kernel's. A padded slot adds nothing,
+    whatever its row or weight holds. ``mean`` divides by the valid slots'
+    count (their weights' sum), floored at 1e-9, so an all-padding bag
+    gives 0.
+    """
+    if combiner not in ("sum", "mean"):
+        raise ValueError(combiner)
+    B, S = idx.shape
+    idx = idx.long()
+    valid = idx >= 0
+    rows = table[idx.clamp(0, table.shape[0] - 1)].float()  # (B, S, d)
+    w = None if weights is None else weights.float()
+    acc = torch.zeros((B, table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    cnt = torch.zeros((B,), dtype=torch.float32, device=table.device)
+    for s in range(S):  # slot order: the kernel's summation order
+        x = rows[:, s] if w is None else rows[:, s] * w[:, s, None]
+        c = torch.ones_like(cnt) if w is None else w[:, s]
+        acc = acc + torch.where(valid[:, s, None], x, 0.0)
+        cnt = cnt + torch.where(valid[:, s], c, 0.0)
+    if combiner == "sum":
+        return acc
+    return acc / cnt.clamp_min(1e-9)[:, None]

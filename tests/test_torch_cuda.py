@@ -17,6 +17,10 @@ IEEE operations, so it must match exactly, and equal the numpy oracle
 another order than the plain version's float32 matmul (TF32 off), so it
 matches to 1e-5 of the scale of its terms: |q|² + |x|² for l2, |q|·|x|
 for ip, 1 for cos. The top-k kernel only selects, so it matches exactly.
+The embedding-bag kernel sums each column in slot order with IEEE
+operations, as its plain version does, so it matches exactly; the recsys
+models on the card match their CPU forward to rtol 1e-4, atol 1e-5 (float32
+matmuls and softmaxes that sum in other orders, TF32 off).
 """
 
 import numpy as np
@@ -32,6 +36,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.core import distributed as D
 from repro_torch.kernels.topk import MAX_CANDIDATES, TOPK_MAX_K
 from repro_torch.launch import mesh as PM
+from repro_torch import configs as PC
+from repro_torch.data.synthetic import click_batches
+from repro_torch.models import recsys as PRS
 
 METRICS = ["l2", "ip", "cos"]
 
@@ -486,3 +493,99 @@ def test_substrate_world_of_one_on_card_matches_cpu(cuda, tmp_path, mode):
         gap = abs(float(exact[r, ion[r, c]]) - float(exact[r, ioff[r, c]]))
         assert gap <= 2e-4, (int(r), int(c), gap)
     torch.testing.assert_close(don, doff, rtol=2e-4, atol=2e-4)
+
+
+EB_DTYPES = {"f32": torch.float32, "f16": torch.float16,
+             "bf16": torch.bfloat16}
+
+
+def _bag_case(rng, V, d, B, S, dtype, cuda):
+    """A (V, d) table at ``dtype``, (B, S) int32 ids with padding, ids at
+    and above V and (where B > 1) one all-padding bag, and weights."""
+    table = torch.from_numpy(rng.standard_normal((V, d)).astype(
+        np.float32)).to(dtype).to(cuda)
+    idx = rng.integers(-1, V + 3, (B, S)).astype(np.int32)
+    idx[0, 0] = V  # at V: reads row V - 1
+    if B > 1:
+        idx[1] = -1  # a bag of nothing but padding
+    w = rng.uniform(-1.0, 2.0, (B, S)).astype(np.float32)
+    return (table, torch.from_numpy(idx).to(cuda),
+            torch.from_numpy(w).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(EB_DTYPES))
+@pytest.mark.parametrize("d", [1, 3, 64, 768])  # scalar and 4-wide loads
+def test_embedding_bag_kernel_equals_plain(cuda, dtype, d):
+    """Sum and mean, with and without weights, S in {1, 32}, B in {1, 512}:
+    the kernel equals its plain version bit for bit."""
+    rng = np.random.default_rng(d)
+    for S in (1, 32):
+        for B in (1, 512):
+            table, idx, w = _bag_case(rng, 1000, d, B, S, EB_DTYPES[dtype],
+                                      cuda)
+            for combiner in ("sum", "mean"):
+                for weights in (None, w):
+                    before = ops.launch_counts()["embedding_bag"]
+                    got = ops.embedding_bag(table, idx, weights, combiner)
+                    want = ref.embedding_bag_ref(table, idx, weights,
+                                                 combiner)
+                    torch.cuda.synchronize()
+                    assert ops.launch_counts()["embedding_bag"] == before + 1
+                    assert got.dtype == torch.float32
+                    assert torch.equal(got, want), (S, B, combiner,
+                                                    weights is None)
+                    if B > 1:
+                        assert not bool(got[1].any())
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_takes_int64_ids_past_int32(cuda):
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.standard_normal((50, 8)).astype(
+        np.float32)).to(cuda)
+    idx = torch.tensor([[2**40, 3, -2**40], [49, 50, -1]],
+                       dtype=torch.int64, device=cuda)
+    got = ops.embedding_bag(table, idx)
+    assert torch.equal(got, ref.embedding_bag_ref(table, idx))
+    assert torch.equal(got[0], table[49] + table[3])
+    small = idx[:, 1:].int().contiguous()  # int32 ids
+    assert torch.equal(ops.embedding_bag(table, small),
+                       ref.embedding_bag_ref(table, small))
+
+
+@pytest.mark.cuda
+def test_embedding_bag_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    table = torch.zeros((10, 8), device=cuda)
+    idx = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ops.embedding_bag(table.double(), idx)
+    with pytest.raises(ValueError):
+        ops.embedding_bag(table, idx.float())
+    with pytest.raises(ValueError):
+        ops.embedding_bag(table, idx.cpu())
+    with pytest.raises(ValueError):
+        ops.embedding_bag(table, idx, torch.ones((2, 2), device=cuda))
+    with pytest.raises(ValueError):
+        ops.embedding_bag(table, idx, combiner="max")
+    with pytest.raises(ValueError):
+        ops.embedding_bag(table[:0], idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "din", "autoint", "bst"])
+def test_recsys_forward_on_card_matches_cpu(cuda, arch):
+    """The smoke config's serve step on the card against the same
+    parameters on the CPU, TF32 off."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = PC.get(arch).make_smoke_config()
+    cpu = PRS.init_recsys(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = PRS.init_recsys(cfg, torch.Generator().manual_seed(0), cuda)
+    with torch.inference_mode():  # the serve step
+        for batch in click_batches(cfg, 64, 2, seed=0):
+            want = PRS.recsys_forward(cpu, batch)
+            got = PRS.recsys_forward(card, batch)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(PRS.recsys_loss(card, batch).cpu(),
+                                       PRS.recsys_loss(cpu, batch),
+                                       rtol=1e-4, atol=1e-5)

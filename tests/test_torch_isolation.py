@@ -24,6 +24,8 @@ from repro_torch.core import engine as P
 from repro_torch.core.graph import empty_graph
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as M
+from repro_torch.models import embeddings as PE
+from repro_torch.models import recsys as PRS
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "src" / "repro_torch"
@@ -53,7 +55,7 @@ def test_every_kernel_source_has_its_wrapper():
     stems = {p.stem for p in _build.sources()}
     assert stems == {"gather_distance", "merge_topk",
                      "dequant_gather_distance", "adc_gather_distance",
-                     "distance_matrix", "topk"}
+                     "distance_matrix", "topk", "embedding_bag"}
     wrappers = {p.stem for p in (PACKAGE / "kernels").glob("*.py")}
     assert stems - {"merge_topk", "distance_matrix"} <= wrappers
     assert {"topk", "distance"} <= wrappers
@@ -72,7 +74,9 @@ def test_every_module_imports_without_jax():
         repro_torch.__path__, prefix="repro_torch.")]
     for name in ("core.engine", "core.quant", "convert",
                  "kernels.dequant_gather_distance", "core.distributed",
-                 "launch.mesh", "kernels.distance"):
+                 "launch.mesh", "kernels.distance", "kernels.embedding_bag",
+                 "models.embeddings", "models.recsys", "configs",
+                 "configs.dlrm_rm2"):
         assert "repro_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -151,3 +155,27 @@ def test_shard_group_and_distributed_search_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="is_available"):
         index.shard(0)
     assert index.shard(0, "cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("model", ["dlrm", "din", "autoint", "bst"])
+def test_recsys_init_raises_without_cuda(no_cuda, model):
+    """The recsys models and the embedding tables default to CUDA too:
+    ``device=None`` without a card raises before anything is drawn."""
+    cfg = PRS.RecsysConfig(model=model, n_sparse=2, embed_dim=4, vocab=10,
+                          seq_len=3, bot_mlp=(4,), top_mlp=(4, 1),
+                          attn_mlp=(4,), n_attn_layers=2, d_attn=2)
+    with pytest.raises(RuntimeError, match="is_available"):
+        PRS.init_recsys(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="is_available"):
+        PRS.init_recsys(cfg, torch.Generator(), device=None)
+    assert next(PRS.init_recsys(cfg, torch.Generator(), "cpu")
+                .parameters()).device == torch.device("cpu")
+
+
+def test_embedding_table_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="is_available"):
+        PE.init_embedding_table(10, 4, torch.Generator())
+    with pytest.raises(RuntimeError, match="is_available"):
+        PE.init_embedding_table(10, 4, torch.Generator(), device=None)
+    table = PE.init_embedding_table(10, 4, torch.Generator(), device="cpu")
+    assert table["table"].device == torch.device("cpu")

@@ -328,8 +328,10 @@ def test_ops_run_plain_versions_on_cpu_tensors():
         torch.zeros((40, 4), dtype=torch.uint8),
         torch.zeros((ids.shape[0], 1, 4, 256)), torch.from_numpy(ids))
     ops.distance_topk(torch.from_numpy(Q), torch.from_numpy(table), 3)
+    ops.embedding_bag(torch.from_numpy(table), torch.from_numpy(ids))
     assert ops.launch_counts() == {
         "gather_distance": 0, "gather_distance_batch": 0,
         "dequant_gather_distance": 0, "dequant_gather_distance_batch": 0,
         "adc_gather_distance": 0, "adc_gather_distance_batch": 0,
-        "merge_topk": 0, "topk": 0, "distance_matrix": 0}
+        "merge_topk": 0, "topk": 0, "distance_matrix": 0,
+        "embedding_bag": 0}
