@@ -13,9 +13,12 @@ the script exits non-zero:
    ``nvcc``, one process per source, all at once (timed);
 3. kernels against their plain PyTorch versions, on the card, at the
    shapes of the query path (the dequant kernel at int8 and float16), and
-   the flat scan's: the distance matrix at l2/ip/cos within DM_TOL of the
-   metric's scale, the top-k exactly (k = 1, 10 and the cap, ragged N,
-   ties across tiles, all-inf rows, rows with fewer than k finite); and
+   the flat scan's: the merge exactly at tie-heavy rows on both sides of
+   its variant switch (M = 255, 256, 257, and 1,000) and at rows shaped
+   as the beam merge sends them; the distance matrix at l2/ip/cos within
+   DM_TOL of the metric's scale, the top-k exactly (k = 1, 10 and the
+   cap, ragged N, ties across tiles and across merge levels, all-inf
+   rows, rows with fewer than k finite, retrieval's (1, 1,000,000)); and
    the embedding bag exactly (sum and mean, with and without weights,
    float32/float16/bfloat16 tables, d in {1, 3, 64, 768}, S in {1, 32},
    B in {1, 512}, ids at and above V, all-padding bags, int64 ids);
@@ -60,9 +63,11 @@ the script exits non-zero:
    64 candidates (ip, k = 100) against the CPU plain scan (every
    differing id a near tie, scores within DM_TOL of the scale), one
    distance-matrix and one top-k launch, and both kernels held to their
-   plain versions at this shape (the top-k exactly, its one-block merge
-   of ~1,000 tiles' survivors);
-5. times: each kernel, its plain version and its bound (CUDA events),
+   plain versions at this shape (the top-k exactly, its tree merging
+   977 tiles' survivors in two levels);
+5. times: each kernel, its plain version and its bound (CUDA events;
+   the merge also at the beam merge's rows, the top-k also at
+   retrieval's shape, each beside ``torch.topk``),
    the end-to-end latency of batched, single-query and fused searches at
    each precision, and of the flat scan, with the device's idle share.
 
@@ -78,6 +83,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -164,6 +170,7 @@ def load_port():
     from repro_torch.data.synthetic import corpus_embeddings
     from repro_torch.core import distributed
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import topk as topk_mod
     from repro_torch.kernels.topk import TOPK_MAX_K
     from repro_torch.launch import mesh
     from repro_torch import configs
@@ -174,11 +181,20 @@ def load_port():
         engine=engine, brute_force_topk=brute_force_topk,
         recall_at_k=recall_at_k, build_hnsw=build_hnsw,
         corpus_embeddings=corpus_embeddings, build=_build, ops=ops, ref=ref,
+        topk=topk_mod, kernel_names=kernel_names(_build.sources()),
         convert=convert, quant=quant, pq=pq, InMemoryBackend=InMemoryBackend,
         distributed=distributed, mesh=mesh, topk_max_k=TOPK_MAX_K,
         configs=configs, click_batches=click_batches, embeddings=embeddings,
         recsys=recsys,
     )
+
+
+def kernel_names(sources) -> frozenset:
+    """The names of the ``__global__`` functions in the CUDA sources."""
+    decl = re.compile(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    return frozenset(name for src in sources
+                     for name in decl.findall(src.read_text()))
 
 
 def device_line() -> str:
@@ -256,6 +272,34 @@ def merge_inputs(rng, B: int, M: int, dev):
     return torch.from_numpy(d).to(dev), torch.from_numpy(ids).to(dev)
 
 
+def path_merge_inputs(rng, B: int, M: int, ef: int, dev):
+    """Rows as the beam merge sends them (``core/search.py::beam_merge``):
+    an ef-wide beam of ascending distances, then M - ef new entries, every
+    id distinct within its row and every entry valid."""
+    beam = np.sort(rng.random((B, ef)), axis=1)
+    d = np.concatenate([beam, rng.random((B, M - ef))], 1).astype(np.float32)
+    ids = np.stack([rng.choice(1_000_000, M, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    return torch.from_numpy(d).to(dev), torch.from_numpy(ids).to(dev)
+
+
+def merge_checks(shape: Shape) -> list:
+    """(kind, B, M, k) rows phase 3 holds the merge to its plain version
+    on: the beam merge's rows a hop and a load phase (tie-heavy and
+    path-like), at B = 1 for the loop and single drivers, the finalize's
+    k = 1, and the widths on both sides of the warp-sort variant's limit
+    of 256 and well past it (the block-argmin variant)."""
+    hop, load = shape.ef + shape.degree, shape.ef + shape.miss_cap
+    return [("ties", shape.batch, hop, shape.ef),
+            ("ties", shape.batch, load, shape.ef),
+            ("ties", shape.batch, shape.degree + 1, 1),
+            ("path", shape.batch, hop, shape.ef),
+            ("path", shape.batch, load, shape.ef),
+            ("path", 1, hop, shape.ef),
+            ("ties", 4, 255, shape.ef), ("ties", 4, 256, shape.ef),
+            ("ties", 4, 257, shape.ef), ("ties", 3, 1_000, 50)]
+
+
 def check_kernels(port, shape: Shape, dev, rng) -> dict:
     """Each kernel against its plain version on the card."""
     ops, ref = port["ops"], port["ref"]
@@ -287,15 +331,15 @@ def check_kernels(port, shape: Shape, dev, rng) -> dict:
                 float((one[fin[0]] - one_ref[fin[0]]).abs().max()))
     err.update(check_dequant_kernels(port, shape, dev, rng))
     err.update(check_adc_kernels(port, shape, dev, rng))
-    for B, M, k in ((shape.batch, shape.ef + shape.degree, shape.ef),
-                    (shape.batch, shape.ef + shape.miss_cap, shape.ef),
-                    (shape.batch, shape.degree + 1, 1)):
-        d, i = merge_inputs(rng, B, M, dev)
+    for kind, B, M, k in merge_checks(shape):
+        d, i = (merge_inputs(rng, B, M, dev) if kind == "ties"
+                else path_merge_inputs(rng, B, M, shape.ef, dev))
         got = ops.merge_topk(d, i, k)
         want = ref.merge_topk_ref(d, i, k)
         torch.cuda.synchronize()
         for g, w, what in zip(got, want, ("dists", "ids", "src")):
-            check(torch.equal(g, w), f"merge_topk {what} at ({B}, {M}) k={k}")
+            check(torch.equal(g, w),
+                  f"merge_topk {what} at {kind} ({B}, {M}) k={k}")
     return err
 
 
@@ -433,9 +477,12 @@ def scaled_error(got, want, Q, X, metric: str) -> float:
 
 
 def topk_cases(rng, cap: int, dev) -> dict:
-    """(D, k) inputs of the top-k kernel: k = 1, 10 and the cap, N = 1, N
-    no multiple of the 1024-column tile, equal values across tiles, all-inf
-    rows and rows with fewer than k finite entries."""
+    """(D, k) inputs of the top-k kernel: k = 1, 10, 63 and 64 (the merge
+    levels' two keys a lane) and the cap, N = 1, N no multiple of the
+    1024-column tile (a last tile shorter than k), equal
+    values across tiles and across the groups of 32 tiles its first merge
+    level takes, all-inf rows, rows with fewer than k finite entries, and
+    retrieval's (1, 1,000,000) at k = 100 (two merge levels)."""
     ties = np.round(rng.random((8, 5_000)), 1).astype(np.float32)
     infs = rng.random((8, 3_000)).astype(np.float32)
     infs[rng.random(infs.shape) < 0.5] = np.inf
@@ -453,6 +500,13 @@ def topk_cases(rng, cap: int, dev) -> dict:
         "wide,k=10": (wide, 10), f"wide,k={cap}": (wide, cap),
         "reduce (32, 10),k=10": (np.round(rng.random((32, 10)), 1).astype(
             np.float32), 10),
+        "ties,k=63": (ties, 63), "ties,k=64": (ties, 64),
+        "short last tile,k=64": (rng.random((3, 1_064)).astype(np.float32),
+                                 64),
+        f"tree ties (2, 200000),k={cap}": (np.round(rng.random(
+            (2, 200_000)), 2).astype(np.float32), cap),
+        "retrieval (1, 1000000),k=100": (rng.standard_normal(
+            (1, 1_000_000)).astype(np.float32), 100),
     }
     return {name: (torch.from_numpy(D).to(dev), k)
             for name, (D, k) in cases.items()}
@@ -1129,7 +1183,8 @@ def run_recsys(port, dev) -> dict:
                 lat["loss"] = float(R.recsys_loss(model, batch))
                 if B == p99_b or cfg.model == "dlrm":
                     lat["profile"] = profile_call(
-                        lambda b=batch: R.recsys_forward(model, b).cpu())
+                        lambda b=batch: R.recsys_forward(model, b).cpu(),
+                        port["kernel_names"])
                 o[f"B{B}"] = lat
         o["peak_device_bytes"] = torch.cuda.max_memory_allocated()
         serve[arch] = o
@@ -1160,8 +1215,7 @@ def run_recsys(port, dev) -> dict:
           and bool((dists[:, 1:] >= dists[:, :-1]).all()),
           "retrieval: finite scores, best first")
     # B.5 and B.6 against their plain versions at this path's own shape
-    # (one block merging ~1,000 tiles' survivors, which no phase-3 case
-    # reaches), on the same card tensors
+    # and matrix, on the same card tensors
     D_k = ops.distance_matrix(q_d, cands_d, "ip")
     dm_err = scaled_error(D_k, port["ref"].distance_matrix_ref(
         q_d, cands_d, "ip"), q_d, cands_d, "ip")
@@ -1176,7 +1230,8 @@ def run_recsys(port, dev) -> dict:
           f"{D_k.shape[1]} columns (values and ids)")
     check(torch.equal(dists, top_k[0]) and torch.equal(ids, top_k[1]),
           "retrieval_score = the distance matrix's top-k")
-    del D_k, top_k, top_r
+    out["retrieval_D"] = D_k  # 4 MB, timed in phase 5
+    del top_k, top_r
     ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
     plain_d, plain = R.retrieval_score(torch.from_numpy(q),
                                        torch.from_numpy(cands), k=RETRIEVAL_K)
@@ -1208,7 +1263,8 @@ def run_recsys(port, dev) -> dict:
                worst_gap=worst, dist_gap=dist_gap, dm_scaled_err=dm_err,
                launches=n, profile=profile_call(
                    lambda: R.retrieval_score(q_d, cands_d,
-                                             k=RETRIEVAL_K)[1].cpu()))
+                                             k=RETRIEVAL_K)[1].cpu(),
+                   port["kernel_names"]))
     out["record"]["retrieval"] = lat
     print(f"recsys, retrieval_score: {json.dumps(lat)}", flush=True)
     return out
@@ -1274,31 +1330,56 @@ def time_kernels(port, shape: Shape, dev, rng, launches, err) -> list:
            lambda t, i, q: ops.gather_distance(t, i, q, "l2"),
            lambda t, i, q: ref.gather_distance_ref(t, i, q, "l2"),
            lambda i, q: (i[0], q[0]))
-    # the batched driver's per-hop beam merge: ef beam + deg new entries
+    rows.append(time_merge(port, shape, dev, rng, launches, err))
+    return rows
+
+
+def time_merge(port, shape: Shape, dev, rng, launches, err) -> dict:
+    """B.2 at the batched driver's per-hop beam merge, (32, ef + degree),
+    k = ef, on tie-heavy rows (``merge_inputs``, kept as the row earlier
+    versions of the kernel were timed on);
+    and at the beam merge's own rows (``path_merge_inputs``) a hop, a load
+    phase and at B = 1, each beside ``torch.topk`` on the same distances
+    (a yardstick only: it has no id dedup and no sentinel rule); and the
+    block-argmin variant at (32, 1,000). Inputs are L2-resident, as on the
+    query path, where the merge reads the row the hop has just written."""
+    ops, ref = port["ops"], port["ref"]
+    B, k = shape.batch, shape.ef
+
+    def bound(B, M):  # bytes: (dist, id) read once, (dist, id, src)
+        # written; operations: k rounds of M compares (below the bytes)
+        return bound_ms(B * M * 8 + B * k * 12, B * k * M)
+
+    def timed(d, i):
+        return dict(
+            ms=device_ms([lambda: ops.merge_topk(d, i, k)] * 100),
+            library_ms=device_ms(
+                [lambda: torch.topk(d, k, dim=1, largest=False)] * 100),
+            bound_ms=bound(*d.shape)[0])
+
     Mm = shape.ef + shape.degree
     d, i = merge_inputs(rng, B, Mm, dev)
-    k = shape.ef
-    # bytes: (dist, id) read once, (dist, id, src) written; k rounds of
-    # M compares
-    t, by = bound_ms(B * Mm * 8 + B * k * 12, B * k * Mm)
-    rows.append(dict(
+    t, by = bound(B, Mm)
+    path = {}
+    for b_, m_ in ((B, Mm), (B, shape.ef + shape.miss_cap), (1, Mm)):
+        path[f"{b_}x{m_}"] = timed(*path_merge_inputs(rng, b_, m_, shape.ef,
+                                                      dev))
+    wide = merge_inputs(rng, B, 1_000, dev)
+    return dict(
         name="merge_topk", route="cuda",
         source="src/repro_torch/csrc/merge_topk.cu",
         replaces="src/repro/kernels/topk.py:139",
         launches=launches["merge_topk"],
         max_abs_err=err["merge_topk"],
-        # its 24 KB of inputs sit in L2 here, as on the query path, where
-        # the merge reads the candidate row the hop has just written
         ms=device_ms([lambda: ops.merge_topk(d, i, k)] * 100),
         plain_ms=device_ms([lambda: ref.merge_topk_ref(d, i, k)] * 100),
         bound_ms=t, bound_by=by,
-        # yardstick only: torch.topk has no id dedup and no sentinel rule
         library_ms=device_ms(
             [lambda: torch.topk(d, k, dim=1, largest=False)] * 100),
         call_ms=call_ms(lambda: ops.merge_topk(d, i, k)),
         plain_call_ms=call_ms(lambda: ref.merge_topk_ref(d, i, k)),
-    ))
-    return rows
+        path=path, wide_shape=[B, 1_000], wide=timed(*wide),
+    )
 
 
 def time_dequant_kernels(port, shape: Shape, dev, rng, launches,
@@ -1468,15 +1549,14 @@ FLAT_TIMED_BATCHES = 30
 TOPK_COLD_MATRICES = 3
 
 
-def time_flat_kernels(port, shape: Shape, shard, X, dev, launches,
+def time_flat_kernels(port, shape: Shape, shard, X, D_ret, dev, launches,
                       err) -> list:
     """B.5 at the scan's shape (32, 480000, 768), l2, HBM-cold by size
-    (the table is 1.47 GB); B.6 at the scan's (32, 480000), k = 10, over
-    TOPK_COLD_MATRICES distance matrices of the scan, and at the global
-    reduce's (32, S·k = 10). Each beside its bound, its plain version and
-    one PyTorch call: ``torch.matmul(Q, X.T)`` in full float32 (TF32 off:
-    the ip form but for the sign, the arithmetic of every metric) and
-    ``torch.topk(D, k, largest=False)`` (no tie promise)."""
+    (the table is 1.47 GB), beside its bound, its plain version and
+    ``torch.matmul(Q, X.T)`` in full float32 (TF32 off: the ip form but
+    for the sign, the arithmetic of every metric); then B.6
+    (:func:`time_topk`) over TOPK_COLD_MATRICES distance matrices of the
+    scan and retrieval's ``D_ret``."""
     ops, ref = port["ops"], port["ref"]
     torch.backends.cuda.matmul.allow_tf32 = False
     table = shard.vectors
@@ -1505,16 +1585,34 @@ def time_flat_kernels(port, shape: Shape, shard, X, dev, launches,
         shape=[B, N, d], max_scaled_err=err["distance_matrix_scaled"],
         tf32=torch.backends.cuda.matmul.allow_tf32,
     )]
-    Ds = []
-    for q in mats[:TOPK_COLD_MATRICES]:
-        Ds.append(ops.distance_matrix(q, table, "l2"))
+    Ds = [ops.distance_matrix(q, table, "l2")
+          for q in mats[:TOPK_COLD_MATRICES]]
+    rows.append(time_topk(port, shape, Ds, D_ret, dev, launches, err))
+    return rows
+
+
+def time_topk(port, shape: Shape, Ds, D_ret, dev, launches, err) -> dict:
+    """B.6 at the flat scan's (32, 480000), k = 10, over the scan's
+    distance matrices ``Ds`` (HBM-cold by rotation), at the global
+    reduce's (32, S·k = 10), at the cap k = 128, and at retrieval's
+    (1, 1,000,000), k = 100, over its own ip matrix ``D_ret`` (L2-resident,
+    as B.5 has just written it on the path); each beside its bound, its
+    plain version and ``torch.topk(D, k, largest=False)`` (no tie
+    promise), with the merge levels the kernel runs there."""
+    ops, ref = port["ops"], port["ref"]
+    B, k = shape.batch, shape.k
+    N = Ds[0].shape[1]
+    levels = port["topk"].topk_levels
     small = torch.from_numpy(np.round(np.random.default_rng(3).random(
         (B, k)), 2).astype(np.float32)).to(dev)
     # bytes: the matrix read once, (dist, id) written; one ordered compare
     # an element
     t, by = bound_ms(B * N * 4 + B * k * 8, B * N)
     t_r, by_r = bound_ms(B * k * 4 + B * k * 8, B * k)
-    rows.append(dict(
+    Br, Nr = D_ret.shape
+    kr = RETRIEVAL_K
+    t_ret, by_ret = bound_ms(Br * Nr * 4 + Br * kr * 8, Br * Nr)
+    return dict(
         name="topk", route="cuda", source="src/repro_torch/csrc/topk.cu",
         replaces="src/repro/kernels/topk.py:55",
         launches=launches["topk"], max_abs_err=err["topk"],
@@ -1524,17 +1622,24 @@ def time_flat_kernels(port, shape: Shape, shard, X, dev, launches,
         bound_ms=t, bound_by=by,
         library_ms=device_ms([lambda D=D: torch.topk(D, k, largest=False)
                               for D in Ds * 4]),
-        shape=[B, N], k=k,
+        shape=[B, N], k=k, levels=levels(N),
         reduce_ms=device_ms([lambda: ops.topk(small, k)] * 100),
         reduce_plain_ms=device_ms([lambda: ref.topk_ref(small, k)] * 100),
         reduce_library_ms=device_ms(
             [lambda: torch.topk(small, k, largest=False)] * 100),
         reduce_bound_ms=t_r, reduce_bound_by=by_r,
+        reduce_levels=levels(k),
         cap_k=port["topk_max_k"],
         cap_ms=device_ms([lambda D=D: ops.topk(D, port["topk_max_k"])
                           for D in Ds]),
-    ))
-    return rows
+        retrieval=dict(
+            shape=[Br, Nr], k=kr, levels=levels(Nr),
+            ms=device_ms([lambda: ops.topk(D_ret, kr)] * 20),
+            plain_ms=device_ms([lambda: ref.topk_ref(D_ret, kr)] * 20),
+            library_ms=device_ms(
+                [lambda: torch.topk(D_ret, kr, largest=False)] * 20),
+            bound_ms=t_ret, bound_by=by_ret),
+    )
 
 
 # B.7 timing: each call draws its bags afresh over the 256 MB table (five
@@ -1619,7 +1724,7 @@ def time_flat_scan(port, shape: Shape, shard, X) -> dict:
         out = _latency(lat)
         out["qps"] = shape.batch * 1e3 / out["mean_ms"]
         out["profile"] = profile_call(
-            lambda: search(batches[0], shard)[1].cpu())
+            lambda: search(batches[0], shard)[1].cpu(), port["kernel_names"])
     finally:
         mesh.destroy_shard_group()
     return out
@@ -1697,14 +1802,17 @@ def profile_batched(port, shape: Shape, X, eng) -> dict:
     E = port["engine"]
     Qr = make_queries(X, shape.batch, seed=300)
     return profile_call(lambda: eng.search(E.SearchRequest(query=Qr,
-                                                           k=shape.k)))
+                                                           k=shape.k)),
+                        port["kernel_names"])
 
 
-def profile_call(run) -> dict:
+def profile_call(run, port_kernels) -> dict:
     """``run()`` under torch.profiler: the device's busy time (the sum of
     its kernels, which run on one stream) against the wall time, and
-    where the kernel and host time go. ``run`` must end in a copy to the
-    host, so the wall covers the device work."""
+    where the kernel and host time go: the eight largest kernels, and
+    every kernel named in ``port_kernels`` (the port's own, see
+    :func:`kernel_names`) however small. ``run`` must end in a copy to
+    the host, so the wall covers the device work."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1720,6 +1828,8 @@ def profile_call(run) -> dict:
             kernels[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
     busy_us = sum(us for _, us in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    # the port's kernels sit in their files' anonymous namespaces
+    own = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
@@ -1727,6 +1837,9 @@ def profile_call(run) -> dict:
         kernel_launches=sum(n for n, _ in kernels.values()),
         top_kernels=[dict(name=k[:80], n=n, ms=us / 1e3)
                      for k, (n, us) in top],
+        port_kernels=[dict(name=k[:80], n=n, ms=us / 1e3)
+                      for k, (n, us) in kernels.items()
+                      if own.match(k) and own.match(k)[1] in port_kernels],
         top_host_ops=[dict(name=e.key[:80], n=e.count,
                            self_cpu_ms=e.self_cpu_time_total / 1e3)
                       for e in host[:8]],
@@ -1888,8 +2001,8 @@ def main() -> int:
     rows = time_kernels(port, shape, dev, rng, launches, err)
     rows += time_dequant_kernels(port, shape, dev, rng, launches, err)
     rows += time_adc_kernels(port, shape, dev, rng, launches, err)
-    rows += time_flat_kernels(port, shape, sub["shard"], sub["X"], dev,
-                              launches, err)
+    rows += time_flat_kernels(port, shape, sub["shard"], sub["X"],
+                              rec.pop("retrieval_D"), dev, launches, err)
     rows += time_embedding_bag(port, rec.pop("bag_table"), dev, launches,
                                err)
     record["kernels"] = rows

@@ -5,16 +5,24 @@
 ``merge_topk_cuda`` replaces ``src/repro/kernels/topk.py`` ::
 ``merge_topk_pallas`` and serves as the beam merge of the lazy search:
 its ``src`` output carries the beam's ``explored`` flags through the
-merge. One block per row with the row staged in shared memory; k rounds
-of block-wide argmin on (dist, position). Bound: bytes, but at the query
-path's shapes (M ≤ 161, k = 64) the latency of the k rounds is what it
-pays; see the source.
+merge. Rows of at most 256 candidates (kSortMax in the source; every
+row the query path sends) go one warp a row through a bitonic sort of
+(dist, position) keys in registers; the dedup sorts (id, rank) keys of
+the first k ranks only, and of every valid rank only where those hold a
+repeated id. Wider rows keep the first design, one block a row and k
+rounds of a block-wide argmin. Bound: bytes, but at the query path's
+shapes (M ≤ 161, k = 64) what it pays is the sorts' dependent steps;
+see the source. It launches with no host sync and allocates nothing
+beyond its three outputs, so a CUDA graph can capture it.
 
 ``topk_cuda`` replaces ``src/repro/kernels/topk.py`` :: ``topk_pallas``
-and serves the flat scan's local top-k and the substrate's global
-reduce. Split-K in two passes (one warp per 1024-column tile, then one
-block per row over the tiles' survivors) on 64-bit (value, column) keys,
-under ``lax.top_k``'s contract: ties go to the lower column and ids are
+and serves the flat scan's local top-k, the substrate's global reduce
+and the recsys retrieval. Split-K on 64-bit (value, column) keys: one
+warp per 1024-column tile emits the tile's k survivors in order (k
+rounds of a warp minimum), then a tree of merge levels (``topk_levels``,
+32 sorted lists a block, each pair merged in a warp's registers) leaves
+one list a row, under
+``lax.top_k``'s contract: ties go to the lower column and ids are
 distinct, where ``topk_pallas`` can repeat one. Bound: bytes, the matrix
 read once; see the source.
 
@@ -32,9 +40,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# widest row the kernel stages: 48 KB of shared memory less 256 bytes
-# for its static arrays, 8 bytes a candidate (csrc/merge_topk.cu); the
-# query path's rows are at most ef + miss_cap = 161 wide
+# widest row the merge takes: its block-argmin variant stages the row in
+# 48 KB of shared memory less 256 bytes for its static arrays, 8 bytes a
+# candidate (csrc/merge_topk.cu); the query path's rows are at most
+# ef + miss_cap = 161 wide
 MAX_CANDIDATES = (48 * 1024 - 256) // 8
 
 # the largest k the top-k kernel takes (kMaxK in csrc/topk.cu): twice the
@@ -42,7 +51,7 @@ MAX_CANDIDATES = (48 * 1024 - 256) // 8
 TOPK_MAX_K = 128
 
 # kernel launches since the last ops.reset_launch_counts(), by kernel; a
-# top-k launch is its two passes
+# top-k launch is its first pass and its merge levels
 launches = {"merge_topk": 0, "topk": 0}
 
 
@@ -108,7 +117,15 @@ def _topk_lib():
         lib.topk_scratch_keys.restype = ctypes.c_longlong
         lib.topk_max_k.argtypes = []
         lib.topk_max_k.restype = ctypes.c_int
+        lib.topk_levels.argtypes = [i]
+        lib.topk_levels.restype = ctypes.c_int
     return lib
+
+
+def topk_levels(N: int) -> int:
+    """Merge levels the top-k kernel runs after its first pass at row
+    width N (from the built kernel; needs the card's toolchain)."""
+    return int(_topk_lib().topk_levels(N))
 
 
 def check_topk_args(N: int, k: int) -> None:
@@ -139,7 +156,8 @@ def topk_cuda(
     if B * k == 0:
         return out_d, out_i
     lib = _topk_lib()
-    # the first pass's survivors: (B, ceil(N / 1024), k) 64-bit keys
+    # the first pass's survivors, (B, ceil(N / 1024), k) 64-bit keys, and
+    # the first merge level's, (B, ceil(N / 32768), k)
     scratch = torch.empty((int(lib.topk_scratch_keys(B, N, k)),),
                           dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):

@@ -253,20 +253,83 @@ def test_merge_topk_kernel_matches_plain(cuda, case):
         assert torch.equal(g, w)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,M,k", [(32, 96, 64), (32, 161, 64), (32, 33, 1),
-                                   (3, 1000, 50), (1, 7, 3),
-                                   (2, MAX_CANDIDATES, 16)])
-def test_merge_topk_kernel_random(cuda, B, M, k):
+def _merge_rows(kind, B, M, k):
+    """(dists, ids) rows of one kind:
+
+    - ``ties``: rounded distances, ids from [0, M/2) (duplicates), ids -1
+      and NaN / +inf distances;
+    - ``path``: as the beam merge sends them, an ef = 64 beam of ascending
+      distances then new entries, ids distinct, all valid;
+    - ``dups_after`` / ``dups_before``: every id twice, its best copy in
+      the first half of the row (equal distances included) or only in the
+      second, so the dedup must look forward or back.
+    """
     rng = np.random.default_rng(B + M + k)
-    d = np.round(rng.random((B, M)), 2).astype(np.float32)
-    i = rng.integers(0, max(2, M // 2), (B, M)).astype(np.int32)
-    i[rng.random((B, M)) < 0.15] = -1
-    d[rng.random((B, M)) < 0.05] = np.nan
-    d[rng.random((B, M)) < 0.05] = np.inf
+    if kind == "ties":
+        d = np.round(rng.random((B, M)), 2).astype(np.float32)
+        i = rng.integers(0, max(2, M // 2), (B, M)).astype(np.int32)
+        i[rng.random((B, M)) < 0.15] = -1
+        d[rng.random((B, M)) < 0.05] = np.nan
+        d[rng.random((B, M)) < 0.05] = np.inf
+        return d, i
+    ids = np.stack([rng.choice(10**6, M, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    if kind == "path":
+        ef = min(64, M)
+        d = np.concatenate([np.sort(rng.random((B, ef)), 1),
+                            rng.random((B, M - ef))], 1)
+        return d.astype(np.float32), ids
+    h = M // 2  # M even: ids[:h] twice
+    best = np.round(rng.random((B, h)), 2)
+    if kind == "dups_after":  # the second copy equal (a tie) or worse
+        first, second = best, best + rng.choice([0.0, 0.5], (B, h))
+    else:  # the first copy strictly worse
+        first, second = best + 0.5, best
+    d = np.concatenate([first, second], 1).astype(np.float32)
+    i = np.concatenate([ids[:, :h], ids[:, :h]], 1)
+    return d, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,B,M,k", [
+    ("ties", 32, 96, 64), ("ties", 32, 161, 64), ("ties", 32, 33, 1),
+    ("ties", 3, 1000, 50), ("ties", 1, 7, 3), ("ties", 2, MAX_CANDIDATES, 16),
+    # the beam merge's rows: a hop, a load phase, the loop driver's B = 1
+    ("path", 32, 96, 64), ("path", 32, 161, 64), ("path", 1, 96, 64),
+    # both sides of the warp-sort variant's limit (kSortMax = 256 in
+    # csrc/merge_topk.cu)
+    ("ties", 4, 255, 64), ("ties", 4, 256, 64), ("ties", 4, 257, 64),
+    ("ties", 3, 256, 256), ("ties", 3, 200, 300),  # k = M, k > M
+    ("dups_after", 8, 160, 64), ("dups_before", 8, 160, 64),
+    ("dups_after", 2, 600, 64), ("dups_before", 2, 600, 64),
+])
+def test_merge_topk_kernel_random(cuda, kind, B, M, k):
+    d, i = _merge_rows(kind, B, M, k)
     dt, it = torch.from_numpy(d).to(cuda), torch.from_numpy(i).to(cuda)
     for g, w in zip(ops.merge_topk(dt, it, k), ref.merge_topk_ref(dt, it, k)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_merge_topk_graph_capture(cuda):
+    """A merge captured in a CUDA graph (no host sync, no allocation
+    beyond its outputs) replays to the plain version's bits on new
+    inputs."""
+    d, i = (torch.from_numpy(a).to(cuda)
+            for a in _merge_rows("path", 32, 161, 64))
+    ops.merge_topk(d, i, 64)  # build and load before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ops.merge_topk(d, i, 64)
+    for kind in ("path", "ties"):  # the second: duplicates and sentinels
+        d2, i2 = _merge_rows(kind, 32, 161, 64)
+        d.copy_(torch.from_numpy(d2))
+        i.copy_(torch.from_numpy(i2))
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, ref.merge_topk_ref(d, i, 64)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -405,6 +468,16 @@ def _topk_cases():
         "scan_shape": (rng.random((32, 20_000)).astype(np.float32), 10),
         "global_reduce": (np.round(rng.random((32, 40)), 1).astype(
             np.float32), 10),
+        # the merge levels' two keys a lane (32 < k <= 64), and a last tile
+        # shorter than k (40 columns at k = 64)
+        "ties_k63": (ties, 63), "ties_k64": (ties, 64),
+        "short_last_tile_k64": (rng.random((3, 1064)).astype(np.float32), 64),
+        # retrieval's row: 977 tiles, two merge levels (977 -> 31 -> 1)
+        "retrieval_shape": (rng.standard_normal((1, 1_000_000)).astype(
+            np.float32), 100),
+        # ties that cross the first level's groups of 32 tiles (196 -> 7 -> 1)
+        "tree_ties_cap": (np.round(rng.random((2, 200_000)), 2).astype(
+            np.float32), TOPK_MAX_K),
     }
 
 
@@ -437,6 +510,18 @@ def test_topk_cap_on_card(cuda):
         ops.topk(Dt[:, :3].contiguous(), 4)
     with pytest.raises(ValueError):
         ops.topk(Dt.double(), 2)
+
+
+@pytest.mark.cuda
+def test_topk_merge_levels_on_card(cuda):
+    """One level up to 32 tiles of 1,024 columns, then one more per
+    factor of 32: the flat scan's and retrieval's rows take two."""
+    from repro_torch.kernels import topk as T
+
+    for N, levels in ((1, 1), (10, 1), (32 * 1024, 1), (32 * 1024 + 1, 2),
+                      (480_000, 2), (1_000_000, 2), (32**2 * 1024, 2),
+                      (32**2 * 1024 + 1, 3)):
+        assert T.topk_levels(N) == levels, N
 
 
 @pytest.mark.cuda

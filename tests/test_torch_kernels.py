@@ -244,7 +244,9 @@ def test_merge_topk_plain_hand_cases(case):
 @pytest.mark.parametrize(
     "B,M,k",
     [(1, 1, 1), (3, 7, 3), (8, 44, 11), (5, 130, 16), (2, 3, 9),
-     (4, 97 + 64, 64)],
+     (4, 97 + 64, 64),
+     # both sides of the card kernel's warp-sort limit (M <= 256)
+     (2, 255, 64), (2, 256, 64), (2, 257, 64)],
 )
 def test_merge_topk_plain_random(B, M, k):
     rng = np.random.default_rng(B * 1000 + M + k)
@@ -255,6 +257,39 @@ def test_merge_topk_plain_random(B, M, k):
                  rng.choice([np.nan, np.inf, -np.inf], (B, M)), d)
     d[:, : M // 3] = np.round(d[:, : M // 3], 1)  # ties
     _check_merge(d.astype(np.float32), i, k)
+
+
+@pytest.mark.parametrize("B,M", [(32, 96), (32, 161), (1, 96)])
+def test_merge_topk_plain_path_rows(B, M):
+    """Rows as the beam merge sends them at ef = 64 (a hop's ef + degree,
+    a load phase's ef + miss_cap, the loop driver's B = 1): the sorted
+    beam, then new entries; ids distinct, every entry valid."""
+    rng = np.random.default_rng(B * 1000 + M)
+    d = np.concatenate([np.sort(rng.random((B, 64)), 1),
+                        rng.random((B, M - 64))], 1).astype(np.float32)
+    i = np.stack([rng.choice(10**6, M, replace=False)
+                  for _ in range(B)]).astype(np.int32)
+    got = _check_merge(d, i, 64)
+    assert (got[2] >= 0).all()  # 64 winners a row, none a sentinel
+
+
+@pytest.mark.parametrize("best", ["first", "second"])
+def test_merge_topk_plain_duplicate_order(best):
+    """Every id twice: its best copy in the first half of the row (the
+    second copy equal or worse) or only in the second half."""
+    rng = np.random.default_rng(17)
+    B, h = 8, 80
+    ids = np.stack([rng.choice(10**6, h, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    low = np.round(rng.random((B, h)), 2)
+    if best == "first":
+        first, second = low, low + rng.choice([0.0, 0.5], (B, h))
+    else:
+        first, second = low + 0.5, low
+    d = np.concatenate([first, second], 1).astype(np.float32)
+    got = _check_merge(d, np.concatenate([ids, ids], 1), 64)
+    in_first = got[2] < h
+    assert in_first.all() if best == "first" else not in_first.any()
 
 
 # ------------------------------------------------------------- beam merge
