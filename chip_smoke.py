@@ -10,7 +10,9 @@ the script exits non-zero:
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every kernel source under ``src/repro_torch/csrc`` with
-   ``nvcc``, one process per source, all at once (timed);
+   ``nvcc``, one process per source, all at once (timed), and the
+   registers and spills ptxas reports for the distance-matrix and ADC
+   kernels (``PTXAS_SOURCES``);
 3. kernels against their plain PyTorch versions, on the card, at the
    shapes of the query path (the dequant kernel at int8 and float16), and
    the flat scan's: the merge exactly at tie-heavy rows on both sides of
@@ -67,7 +69,8 @@ the script exits non-zero:
    977 tiles' survivors in two levels);
 5. times: each kernel, its plain version and its bound (CUDA events;
    the merge also at the beam merge's rows, the top-k also at
-   retrieval's shape, each beside ``torch.topk``),
+   retrieval's shape, each beside ``torch.topk``; the distance matrix at
+   the flat scan's and retrieval's shapes beside ``torch.matmul``),
    the end-to-end latency of batched, single-query and fused searches at
    each precision, and of the flat scan, with the device's idle share.
 
@@ -195,6 +198,37 @@ def kernel_names(sources) -> frozenset:
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
     return frozenset(name for src in sources
                      for name in decl.findall(src.read_text()))
+
+
+# the sources whose kernels the latest slice redesigned: the run prints
+# their registers and spills from the build's own ptxas report
+PTXAS_SOURCES = ("distance_matrix", "adc_gather_distance")
+
+
+def ptxas_report(logs: dict) -> dict:
+    """``{source: [{kernel, registers, spill_stores, spill_loads}, ...]}``
+    for PTXAS_SOURCES from ``nvcc -Xptxas -v`` output, one entry per
+    instantiation, named by its template arguments; a source whose
+    library was already built has no report."""
+    out = {}
+    for src in PTXAS_SOURCES:
+        if src not in logs:
+            out[src] = "built before this run: no report"
+            continue
+        entries = []
+        for block in logs[src].split("Compiling entry function")[1:]:
+            fn = re.search(r"([a-z_]+_kernel)I(\w*?)EEv", block)
+            args = re.findall(r"L[ib](\d+)E", fn[2]) if fn else []
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", block)
+            entries.append(dict(
+                kernel=f"{fn[1]}<{','.join(args)}>" if fn else None,
+                registers=int(regs[1]) if regs else None,
+                spill_stores=int(spill[1]) if spill else 0,
+                spill_loads=int(spill[2]) if spill else 0))
+        out[src] = entries
+    return out
 
 
 def device_line() -> str:
@@ -414,14 +448,14 @@ def adc_inputs(port, rng, rows: int, M: int, B: int, K: int, shape: Shape,
 
 def check_adc_kernels(port, shape: Shape, dev, rng) -> dict:
     """The ADC kernel against its plain version on the card, l2/ip/cos at
-    M = 32 and M = 192 (several 32 KiB table chunks, 12 at cos), at a
+    M = 32, 192 and 384 (past its 256-subspace chunk), at a
     hop's shape (32 queries × 32 ids over the tier-2 slab) and a fused
     bulk load's (1 × miss_cap over the payload), in both forms, under
     torch.equal; and the kernel's output, copied to the host, against
     the numpy oracle ``pq.adc_distance_batch_np`` under array_equal."""
     ops, ref, pq = port["ops"], port["ref"], port["pq"]
     err = {"adc_gather_distance": 0.0, "adc_gather_distance_batch": 0.0}
-    for M in (32, PQ_SUBSPACES):
+    for M in (32, PQ_SUBSPACES, 2 * PQ_SUBSPACES):
         for rows, B, K in ((shape.cache, shape.batch, shape.degree),
                            (shape.n, 1, shape.miss_cap)):
             for metric in ("l2", "ip", "cos"):
@@ -1231,6 +1265,7 @@ def run_recsys(port, dev) -> dict:
     check(torch.equal(dists, top_k[0]) and torch.equal(ids, top_k[1]),
           "retrieval_score = the distance matrix's top-k")
     out["retrieval_D"] = D_k  # 4 MB, timed in phase 5
+    out["retrieval_inputs"] = (q_d, cands_d)  # B.5 timed there too
     del top_k, top_r
     ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
     plain_d, plain = R.retrieval_score(torch.from_numpy(q),
@@ -1467,8 +1502,8 @@ def adc_bytes(codes: torch.Tensor, luts: torch.Tensor,
     """The bytes one ADC call must move: of each query's tables, only the
     32-byte sectors (8 entries of a 256-entry row) that its valid ids'
     codes select; each distinct code row; each id read and each distance
-    written once. Staging a query's whole table, as the kernel does, is a
-    choice of its design, not a need of the function."""
+    written once. The kernel reads these entries and rows, no whole
+    table."""
     B, L, M, K = luts.shape
     valid = ids >= 0
     q = torch.arange(B, device=ids.device)[:, None].expand_as(ids)[valid]
@@ -1549,10 +1584,12 @@ FLAT_TIMED_BATCHES = 30
 TOPK_COLD_MATRICES = 3
 
 
-def time_flat_kernels(port, shape: Shape, shard, X, D_ret, dev, launches,
-                      err) -> list:
+def time_flat_kernels(port, shape: Shape, shard, X, D_ret, ret_inputs, dev,
+                      launches, err) -> list:
     """B.5 at the scan's shape (32, 480000, 768), l2, HBM-cold by size
-    (the table is 1.47 GB), beside its bound, its plain version and
+    (the table is 1.47 GB), and at retrieval's (1, 1000000, 64), ip, on
+    its own query and candidates ``ret_inputs`` (256 MB, five times the
+    L2), each beside its bound, its plain version and
     ``torch.matmul(Q, X.T)`` in full float32 (TF32 off: the ip form but
     for the sign, the arithmetic of every metric); then B.6
     (:func:`time_topk`) over TOPK_COLD_MATRICES distance matrices of the
@@ -1564,10 +1601,18 @@ def time_flat_kernels(port, shape: Shape, shard, X, D_ret, dev, launches,
     B, k = shape.batch, shape.k
     mats = [torch.from_numpy(make_queries(X, B, seed=700 + i)).to(dev)
             for i in range(3)]
-    # bytes: Q, X read once, the (B, N) output written once; operations:
-    # the 2·B·N·d of the product, the norms 2·(B + N)·d, 3 an output
-    t, by = bound_ms((B * d + N * d + B * N) * 4,
-                     2 * B * N * d + 2 * (B + N) * d + 3 * B * N)
+
+    def dm_bound(B, N, d):
+        # bytes: Q, X read once, the (B, N) output written once;
+        # operations: the 2·B·N·d of the product, the norms 2·(B + N)·d,
+        # 3 an output
+        return bound_ms((B * d + N * d + B * N) * 4,
+                        2 * B * N * d + 2 * (B + N) * d + 3 * B * N)
+
+    t, by = dm_bound(B, N, d)
+    q_r, cands = ret_inputs
+    t_r, by_r = dm_bound(q_r.shape[0], *cands.shape)
+    ret_calls = 20
     rows = [dict(
         name="distance_matrix", route="cuda",
         source="src/repro_torch/csrc/distance_matrix.cu",
@@ -1584,6 +1629,15 @@ def time_flat_kernels(port, shape: Shape, shard, X, D_ret, dev, launches,
                               for q in mats], replays=3),
         shape=[B, N, d], max_scaled_err=err["distance_matrix_scaled"],
         tf32=torch.backends.cuda.matmul.allow_tf32,
+        retrieval=dict(
+            shape=[q_r.shape[0], *cands.shape], metric="ip",
+            ms=device_ms([lambda: ops.distance_matrix(q_r, cands, "ip")]
+                         * ret_calls),
+            plain_ms=device_ms([lambda: ref.distance_matrix_ref(
+                q_r, cands, "ip")] * ret_calls),
+            library_ms=device_ms([lambda: torch.matmul(q_r, cands.T)]
+                                 * ret_calls),
+            bound_ms=t_r, bound_by=by_r),
     )]
     Ds = [ops.distance_matrix(q, table, "l2")
           for q in mats[:TOPK_COLD_MATRICES]]
@@ -1872,6 +1926,9 @@ def main() -> int:
         port["build"].library(name)
     record["build_s"] = time.perf_counter() - t0
     print(f"build: {sorted(libs)} in {record['build_s']:.2f} s", flush=True)
+    record["ptxas"] = ptxas_report(port["build"].LOGS)
+    print(f"ptxas, redesigned kernels: {json.dumps(record['ptxas'])}",
+          flush=True)
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(0)
@@ -2002,7 +2059,9 @@ def main() -> int:
     rows += time_dequant_kernels(port, shape, dev, rng, launches, err)
     rows += time_adc_kernels(port, shape, dev, rng, launches, err)
     rows += time_flat_kernels(port, shape, sub["shard"], sub["X"],
-                              rec.pop("retrieval_D"), dev, launches, err)
+                              rec.pop("retrieval_D"),
+                              rec.pop("retrieval_inputs"), dev, launches,
+                              err)
     rows += time_embedding_bag(port, rec.pop("bag_table"), dev, launches,
                                err)
     record["kernels"] = rows

@@ -1,5 +1,6 @@
 // Distance matrix of a query batch against a table, written by hand for
-// Hopper (sm_90a). It is the local scan of the flat search substrate.
+// Hopper (sm_90a). It is the local scan of the flat search substrate and
+// recsys' candidate retrieval.
 //
 // Replaces src/repro/kernels/distance.py :: distance_matrix_pallas.
 //
@@ -9,53 +10,118 @@
 //   ip : -g
 //   cos: -g / ((|q| + 1e-30) (|x| + 1e-30))
 //
-// Bound: bytes at the flat scan's shape. At (32, 480000, 768) the table is
-// 1.47 GB and the output 61 MB, 0.459 ms at 3.35 TB/s; the 2*B*N*d = 23.6
-// GFLOP of float32 FMA take 0.352 ms at 67 TFLOP/s, so the two are close
-// and the kernel must keep both the loads and the FMA pipes busy.
-// Design: a tiled float32 GEMM on the CUDA cores (FFMA, no TF32 and no
-// tensor cores: wgmma takes no float32 inputs, and TF32's ~3 digits would
-// move l2 distances near |x|^2 ~ 860 by far more than the gaps the ids
-// depend on). A block computes a 32 x 128 output tile; its 256 threads
-// stage a 32-deep slice of Q and of X through shared memory (16-byte
-// coalesced loads, stored transposed so the inner loop reads them as
-// conflict-free float4), and each thread keeps a 4 x 4 register tile of
-// dot products. At B <= 32 one block row covers the whole batch, so X is
-// read from device memory once. The row norms |x|^2 and |q|^2 are summed
-// from the same staged tiles (X is not read a second time), and the
-// epilogue applies the metric: cos divides by the norms here, where the
-// TPU wrapper normalised the whole table on every call. Ragged B, N and d
-// are masked in the kernel (zeros staged past the edge, stores guarded);
-// no padded copy of X is made. Several blocks share an SM, so one block's
-// loads overlap another's FMA without explicit double buffering; at l2 and
-// cos the norms and epilogue take ~120 registers a thread, which leaves
-// two blocks an SM and about half the memory rate (a later version may
-// add cp.async stages and trim registers).
+// Bound: bytes. At the flat scan's (32, 480000, 768) the table is 1.47 GB
+// and the output 61 MB, 0.459 ms at 3.35 TB/s; at retrieval's
+// (1, 1000000, 64) the table is 256 MB, 0.078 ms. The 2*B*N*d FMAs would
+// take 0.352 ms on the CUDA cores at the scan's shape, close to the bytes,
+// so the products go to the tensor cores instead.
+//
+// Design: a stream over the table with the products on the tensor cores
+// in 3xTF32. Each staged float32 element v is split into hi = tf32(v) and
+// lo = tf32(v - hi), each rounded to nearest with ties away from zero (the
+// bits of cvt.rna.tf32.f32, by two integer operations; raw float32 bits
+// fed as TF32 would be truncated), and each m16n8k8 product tile takes
+// three mma.sync TF32 products into float32 accumulators, small terms
+// first: lo.hi, hi.lo, then hi.hi. That keeps g to about float32 accuracy
+// (plain TF32 moves l2 distances near |x|^2 ~ 860 by ~5e-5 of the scale,
+// past the near-tie gaps the ids depend on; see
+// tests/test_torch_kernels.py). Table rows are the M side of the product
+// and queries the N side, so B <= 32 takes at most four n8 tiles and
+// B = 1 one (NT, a template parameter). A tile is 128 table rows by up to
+// 32 queries; its four warps own 32 rows each. A persistent grid (as many
+// blocks as fit on the card: three an SM) walks the tiles; a ring of
+// kStages 32-deep slices of the X tile and the Q slice is filled by
+// cp.async 16-byte copies (4-byte copies where d % 4 != 0 or a base is not
+// 16-byte aligned), kStages - 1 slices ahead and across tile boundaries,
+// so one tile's epilogue overlaps the next tile's loads and no load passes
+// through registers. Slices are stored as loaded, rows padded to 40 floats
+// so that the fragments' 8-byte loads are free of bank conflicts (each
+// k-step of 8 maps its k index t to 2t and t + 4 to 2t + 1, the same map
+// for both operands). |x|^2 and |q|^2 are summed in float32 FFMA from the
+// same staged values (not their TF32 parts), so X is read from device
+// memory once; the epilogue applies the metric (ip reads the norms only to
+// keep a NaN input) and guards its stores at ragged B and N (zeros are
+// staged past the edges). At B > 32 the tiles of one table slab are
+// neighbours in the walk, so blocks in flight share an X tile through L2.
+// Occupancy: shared memory (three 25 KiB stages) allows three blocks an
+// SM; __launch_bounds__(kThreads, 1) lets ptxas take the registers it
+// needs without spilling (chip_smoke.py prints the counts), which still
+// fit three blocks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBM = 32;   // output rows (queries) a block
-constexpr int kBN = 128;  // output columns (table rows) a block
-constexpr int kBK = 32;   // depth of one staged slice of d
-constexpr int kTM = 4;    // rows of a thread's register tile
-constexpr int kTN = 4;    // columns of a thread's register tile
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256: 8 warps x 32
-constexpr int kQS = kBM + 4;  // padded row stride of the staged Q slice
-constexpr int kXS = kBN + 4;  // padded row stride of the staged X slice
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kRows = 128;   // table rows a tile (the products' M side)
+constexpr int kMaxQ = 32;    // queries a tile (at most four n8 tiles)
+constexpr int kBK = 32;      // depth of one staged slice of d
+constexpr int kStride = 40;  // padded row stride of a staged slice, floats
+constexpr int kStages = 3;   // slices in the ring
+constexpr int kWarps = 4;    // each owns 32 table rows: two m16 tiles
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
 
-static_assert(kBM / kTM == 8 && kBN / kTN == 32, "one warp per row group");
-static_assert(kBK == 32 && kBK == 4 * (kBM / kTM),
-              "norm split: 32 lanes x 1 k for q, 8 warps x 4 k for x");
+static_assert(kRows == 32 * kWarps, "a warp owns two m16 tiles");
+static_assert(kBK % 8 == 0 && kStride % 8 == 0 && kStride >= kBK,
+              "8-byte fragment loads without bank conflicts");
 
 enum Metric { kL2 = 0, kIp = 1, kCos = 2 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
+// floats of one stage of the ring: the X tile's rows, then the Q slice's
+template <int NT>
+constexpr int kStageFloats = (kRows + NT * 8) * kStride;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// asynchronous copies into shared memory
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: the bits cvt.rna.tf32.f32 gives for a finite v, in two integer
+// operations where cvt.rna compiles to three (it also tests for inf and
+// NaN), and every element takes two roundings. A NaN may come out as a
+// zero here; the norms, summed from the raw values, carry it to the output
+// (finish).
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo + (what TF32 cannot hold of lo); v - hi is exact in float32
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <int METRIC>
@@ -64,186 +130,292 @@ __device__ __forceinline__ float finish(float g, float qn, float xn) {
     const float v = (qn + xn) - 2.0f * g;
     return v < 0.0f ? 0.0f : v;  // NaN fails the test and stays NaN
   }
-  if (METRIC == kIp) return -g;
+  if (METRIC == kIp) {
+    const float n = qn + xn;  // NaN exactly where an input element was
+    return n != n ? n : -g;
+  }
   return -g / ((sqrtf(qn) + 1e-30f) * (sqrtf(xn) + 1e-30f));
 }
 
-// Stage the [k0, k0 + kBK) slice of the Q rows [m0, m0 + kBM) and the X rows
-// [n0, n0 + kBN) into shared memory, transposed ([k][row]); zeros past the
-// edges of B, N and d. VEC: d % 4 == 0 and 16-byte aligned bases.
+// One thread's share of a slice: kWidth floats (a 16-byte copy, or 4 bytes
+// on the scalar path) at column `col` of the slice's rows r0, r0 + kStep,
+// ..., the same for every slice.
 template <bool VEC>
-__device__ __forceinline__ void stage(const float* __restrict__ Q,
-                                      const float* __restrict__ X, int B,
-                                      int N, int d, int m0, int n0, int k0,
-                                      float (*qs)[kQS], float (*xs)[kXS]) {
-  const int t = threadIdx.x;
-  if (VEC) {
-    {  // Q: kBM x kBK = 256 float4, one a thread; 8 threads a row
-      const int row = t >> 3, c = (t & 7) * 4;
-      const int gm = m0 + row, gk = k0 + c;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gm < B && gk < d)
-        v = *reinterpret_cast<const float4*>(Q + static_cast<size_t>(gm) * d + gk);
-      qs[c + 0][row] = v.x;
-      qs[c + 1][row] = v.y;
-      qs[c + 2][row] = v.z;
-      qs[c + 3][row] = v.w;
-    }
+struct Share {
+  static constexpr int kWidth = VEC ? 4 : 1;
+  static constexpr int kPerRow = kBK / kWidth;       // threads a row
+  static constexpr int kStep = kThreads / kPerRow;   // 16 or 4 rows apart
+};
+
+// Copy this thread's share of one slice of ROWS rows into `dst` (its first
+// element in the stage); `src` is its first element in global memory and
+// `step` the distance of kStep rows there. Rows at or past `n_ok` of the
+// share, or a column at or past d (`k_ok` false), get zeros, by a plain
+// store, so the ragged edges of N, B and d add nothing.
+template <int ROWS, bool VEC>
+__device__ __forceinline__ void copy_share(float* dst, const float* src,
+                                           size_t step, int n_ok,
+                                           bool k_ok) {
+  using S = Share<VEC>;
+  const int r0 = threadIdx.x / S::kPerRow;
 #pragma unroll
-    for (int i = 0; i < (kBN * kBK / 4) / kThreads; ++i) {  // X: 4 a thread
-      const int f = t + i * kThreads;
-      const int row = f >> 3, c = (f & 7) * 4;
-      const int gn = n0 + row, gk = k0 + c;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gn < N && gk < d)
-        v = *reinterpret_cast<const float4*>(X + static_cast<size_t>(gn) * d + gk);
-      xs[c + 0][row] = v.x;
-      xs[c + 1][row] = v.y;
-      xs[c + 2][row] = v.z;
-      xs[c + 3][row] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < (kBM * kBK) / kThreads; ++i) {  // Q: 4 a thread
-      const int f = t + i * kThreads;
-      const int row = f / kBK, kk = f % kBK;
-      const int gm = m0 + row, gk = k0 + kk;
-      qs[kk][row] = (gm < B && gk < d) ? Q[static_cast<size_t>(gm) * d + gk] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (kBN * kBK) / kThreads; ++i) {  // X: 16 a thread
-      const int f = t + i * kThreads;
-      const int row = f / kBK, kk = f % kBK;
-      const int gn = n0 + row, gk = k0 + kk;
-      xs[kk][row] = (gn < N && gk < d) ? X[static_cast<size_t>(gn) * d + gk] : 0.f;
+  for (int i = 0; i < (ROWS + S::kStep - 1) / S::kStep; ++i) {
+    if (ROWS % S::kStep != 0 && r0 + i * S::kStep >= ROWS) break;
+    float* to = dst + i * S::kStep * kStride;
+    const bool in = k_ok && i < n_ok;
+    if (VEC) {
+      if (in)
+        cp16(to, src + i * step);
+      else
+        *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      if (in)
+        cp4(to, src + i * step);
+      else
+        *to = 0.f;
     }
   }
 }
 
-template <int METRIC, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-distance_matrix_kernel(const float* __restrict__ Q, const float* __restrict__ X,
-                       int B, int N, int d, int tiles_m,
+// How many of the rows first, first + kStep, ... lie below `limit`.
+template <bool VEC>
+__device__ __forceinline__ int rows_below(int first, int limit) {
+  constexpr int kStep = Share<VEC>::kStep;
+  return first < limit ? (limit - first + kStep - 1) / kStep : 0;
+}
+
+template <int METRIC, int NT, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+distance_matrix_kernel(const float* __restrict__ Q,
+                       const float* __restrict__ X, int B, int N, int d,
+                       int tiles_m, long long n_tiles,
                        float* __restrict__ out) {
-  __shared__ __align__(16) float qs[kBK][kQS];
-  __shared__ __align__(16) float xs[kBK][kXS];
-  __shared__ float xn_part[kBM / kTM][kBN];
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // the mma fragments' group, slot
+  const int KT = d > kBK ? (d + kBK - 1) / kBK : 1;
+  // this block's tiles: blockIdx.x, + gridDim.x, ...; a tile is
+  // (n-slab, m-tile) with the m-tiles of one slab adjacent
+  const long long step = gridDim.x;
+  const long long total = (n_tiles - blockIdx.x + step - 1) / step * KT;
 
-  const int tx = threadIdx.x & 31;  // column group: columns tx*4 .. tx*4+3
-  const int ty = threadIdx.x >> 5;  // row group (= warp): rows ty*4 .. ty*4+3
-  // row tiles of one column tile are neighbours in launch order, so at
-  // B > 32 they share the X tile through L2
-  const int m0 = static_cast<int>(blockIdx.x % tiles_m) * kBM;
-  const int n0 = static_cast<int>(blockIdx.x / tiles_m) * kBN;
-
-  float acc[kTM][kTN];
-  float qn[kTM], xn[kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    qn[i] = 0.f;
-    xn[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    stage<VEC>(Q, X, B, N, d, m0, n0, k0, qs, xs);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&qs[kk][ty * kTM]);
-      const float4 b = *reinterpret_cast<const float4*>(&xs[kk][tx * kTN]);
-      const float av[kTM] = {a.x, a.y, a.z, a.w};
-      const float bv[kTN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (METRIC != kIp) {
-      // |x|^2 of this thread's 4 columns over k in [ty*4, ty*4 + 4), and
-      // |q|^2 of its 4 rows at k = tx: every staged element counted once
-#pragma unroll
-      for (int kk = ty * 4; kk < ty * 4 + 4; ++kk) {
-        const float4 b = *reinterpret_cast<const float4*>(&xs[kk][tx * kTN]);
-        xn[0] = fmaf(b.x, b.x, xn[0]);
-        xn[1] = fmaf(b.y, b.y, xn[1]);
-        xn[2] = fmaf(b.z, b.z, xn[2]);
-        xn[3] = fmaf(b.w, b.w, xn[3]);
+  // producer: the next slice to copy in, kStages - 1 ahead of the consumer
+  using S = Share<VEC>;
+  const int r0 = threadIdx.x / S::kPerRow;
+  const int col = threadIdx.x % S::kPerRow * S::kWidth;
+  const size_t row_step = static_cast<size_t>(S::kStep) * d;
+  long long p_tile = blockIdx.x, p_it = 0;
+  int p_kt = 0, p_stage = 0;
+  const float *x_src, *q_src;  // this thread's first element of the tile
+  int x_ok, q_ok;              // its rows inside N and B
+  auto start_tile = [&]() {
+    const int m0 = static_cast<int>(p_tile % tiles_m) * kMaxQ;
+    const int n0 = static_cast<int>(p_tile / tiles_m) * kRows;
+    x_src = X + static_cast<size_t>(n0 + r0) * d + col;
+    q_src = Q + static_cast<size_t>(m0 + r0) * d + col;
+    x_ok = rows_below<VEC>(n0 + r0, N);
+    q_ok = rows_below<VEC>(m0 + r0, B);
+  };
+  start_tile();
+  auto produce = [&]() {
+    if (p_it < total) {
+      float* xs = smem + p_stage * kStageFloats<NT> + r0 * kStride + col;
+      const int k0 = p_kt * kBK;
+      const bool k_ok = k0 + col < d;
+      copy_share<kRows, VEC>(xs, x_src + k0, row_step, x_ok, k_ok);
+      copy_share<NT * 8, VEC>(xs + kRows * kStride, q_src + k0, row_step,
+                              q_ok, k_ok);
+      if (++p_kt == KT) {
+        p_kt = 0;
+        p_tile += step;
+        start_tile();
       }
-      const float4 a = *reinterpret_cast<const float4*>(&qs[tx][ty * kTM]);
-      qn[0] = fmaf(a.x, a.x, qn[0]);
-      qn[1] = fmaf(a.y, a.y, qn[1]);
-      qn[2] = fmaf(a.z, a.z, qn[2]);
-      qn[3] = fmaf(a.w, a.w, qn[3]);
+      p_stage = p_stage + 1 == kStages ? 0 : p_stage + 1;
     }
-    __syncthreads();  // the next slice overwrites qs and xs
-  }
+    ++p_it;
+    cp_commit();  // an empty group past the end keeps the count uniform
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) produce();
 
-  if (METRIC != kIp) {
+  float acc[2][NT][4];
+  float xn[2][2];     // |x|^2 of rows g and g + 8 of each m16 tile
+  float qp[NT];       // |q|^2 of column nt * 8 + g, this lane's k's
+  long long c_tile = blockIdx.x;
+  int c_kt = 0, c_stage = 0;
+  for (long long it = 0; it < total; ++it) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // this slice is in; every warp is done with the last
+    produce();        // refills the stage the last iteration read
+    const float* xs = smem + c_stage * kStageFloats<NT>;
+    const float* qs = xs + kRows * kStride;
+    if (c_kt == 0) {
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) qn[i] = warp_sum(qn[i]);  // over the 32 k
+      for (int mt = 0; mt < 2; ++mt) {
+        xn[mt][0] = xn[mt][1] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) xn_part[ty][tx * kTN + j] = xn[j];
-    __syncthreads();
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {  // over the 8 warps' k ranges
-      float s = 0.f;
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+      }
 #pragma unroll
-      for (int w = 0; w < kBM / kTM; ++w) s += xn_part[w][tx * kTN + j];
-      xn[j] = s;
+      for (int nt = 0; nt < NT; ++nt) qp[nt] = 0.f;
     }
-  }
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      // B fragments (queries): b0 = (k 2t, n g), b1 = (k 2t + 1, n g)
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            qs + (nt * 8 + g) * kStride + kk + 2 * t);
+        split(v.x, bh[nt][0], bl[nt][0]);
+        split(v.y, bh[nt][1], bl[nt][1]);
+        qp[nt] = fmaf(v.y, v.y, fmaf(v.x, v.x, qp[nt]));
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        // A fragments (table rows): a0 = (g, 2t), a1 = (g + 8, 2t),
+        // a2 = (g, 2t + 1), a3 = (g + 8, 2t + 1)
+        const float* r = xs + (warp * 32 + mt * 16 + g) * kStride + kk + 2 * t;
+        const float2 u0 = *reinterpret_cast<const float2*>(r);
+        const float2 u1 = *reinterpret_cast<const float2*>(r + 8 * kStride);
+        uint32_t ah[4], al[4];
+        split(u0.x, ah[0], al[0]);
+        split(u1.x, ah[1], al[1]);
+        split(u0.y, ah[2], al[2]);
+        split(u1.y, ah[3], al[3]);
+        xn[mt][0] = fmaf(u0.y, u0.y, fmaf(u0.x, u0.x, xn[mt][0]));
+        xn[mt][1] = fmaf(u1.y, u1.y, fmaf(u1.x, u1.x, xn[mt][1]));
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma(acc[mt][nt], al, bh[nt]);
+          mma(acc[mt][nt], ah, bl[nt]);
+          mma(acc[mt][nt], ah, bh[nt]);
+        }
+      }
+    }
+    c_stage = c_stage + 1 == kStages ? 0 : c_stage + 1;
+    if (++c_kt < KT) continue;
 
+    // epilogue of tile c_tile, while the next tile's slices are in flight
+    const int m0 = static_cast<int>(c_tile % tiles_m) * kMaxQ;
+    const int n0 = static_cast<int>(c_tile / tiles_m) * kRows;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gm = m0 + ty * kTM + i;
-    if (gm >= B) break;
-    float* o = out + static_cast<size_t>(gm) * N;
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gn = n0 + tx * kTN + j;
-      if (gn < N) o[gn] = finish<METRIC>(acc[i][j], qn[i], xn[j]);
+      for (int h = 0; h < 2; ++h) {  // over the quad's k's
+        xn[mt][h] += __shfl_xor_sync(kFull, xn[mt][h], 1);
+        xn[mt][h] += __shfl_xor_sync(kFull, xn[mt][h], 2);
+      }
+    float qn[NT][2];  // |q|^2 of columns nt * 8 + 2t and + 1
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float v = qp[nt];
+      v += __shfl_xor_sync(kFull, v, 1);
+      v += __shfl_xor_sync(kFull, v, 2);
+      qn[nt][0] = __shfl_sync(kFull, v, 8 * t);      // column 2t
+      qn[nt][1] = __shfl_sync(kFull, v, 8 * t + 4);  // column 2t + 1
     }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gn = n0 + warp * 32 + mt * 16 + h * 8 + g;
+        if (gn >= N) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int gm = m0 + nt * 8 + 2 * t + j;
+            if (gm < B)
+              out[static_cast<size_t>(gm) * N + gn] = finish<METRIC>(
+                  acc[mt][nt][2 * h + j], qn[nt][j], xn[mt][h]);
+          }
+      }
+    c_kt = 0;
+    c_tile += step;
   }
+  cp_wait<0>();  // only empty groups are left; leave none behind
+}
+
+// Blocks of one instantiation that fit on an SM of the current device,
+// asked once per device (and before any graph capture, by the first call).
+template <int METRIC, int NT, bool VEC>
+int launch(const float* Q, const float* X, int B, int N, int d, int tiles_m,
+           long long n_tiles, float* out, cudaStream_t s) {
+  constexpr int kMaxDevices = 64;
+  static int per_sm[kMaxDevices] = {};
+  static int n_sms[kMaxDevices] = {};
+  auto kernel = distance_matrix_kernel<METRIC, NT, VEC>;
+  constexpr size_t smem = sizeof(float) * kStages * kStageFloats<NT>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (per_sm[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sms[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+    int fit = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel,
+                                                          kThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (fit < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    per_sm[dev] = fit;
+  }
+  const long long resident = static_cast<long long>(per_sm[dev]) * n_sms[dev];
+  const unsigned blocks =
+      static_cast<unsigned>(n_tiles < resident ? n_tiles : resident);
+  kernel<<<blocks, kThreads, smem, s>>>(Q, X, B, N, d, tiles_m, n_tiles, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int METRIC>
-void launch(const float* Q, const float* X, int B, int N, int d, int tiles_m,
-            unsigned blocks, bool vec, float* out, cudaStream_t s) {
-  if (vec)
-    distance_matrix_kernel<METRIC, true><<<blocks, kThreads, 0, s>>>(
-        Q, X, B, N, d, tiles_m, out);
-  else
-    distance_matrix_kernel<METRIC, false><<<blocks, kThreads, 0, s>>>(
-        Q, X, B, N, d, tiles_m, out);
+int launch_metric(const float* Q, const float* X, int B, int N, int d,
+                  int tiles_m, long long n_tiles, bool vec, float* out,
+                  cudaStream_t s) {
+  const int nq = B < kMaxQ ? B : kMaxQ;  // queries of the widest m-tile
+#define DM_LAUNCH(NT)                                                      \
+  return vec ? launch<METRIC, NT, true>(Q, X, B, N, d, tiles_m, n_tiles,  \
+                                        out, s)                           \
+             : launch<METRIC, NT, false>(Q, X, B, N, d, tiles_m, n_tiles, \
+                                         out, s)
+  if (nq <= 8) DM_LAUNCH(1);
+  if (nq <= 16) DM_LAUNCH(2);
+  DM_LAUNCH(4);
+#undef DM_LAUNCH
 }
 
 }  // namespace
 
 // C entry for ctypes. Q (B, d), X (N, d) and out (B, N) are contiguous
-// float32 device arrays; `stream` is the caller's cudaStream_t. Returns
-// cudaGetLastError() after the launch.
+// float32 device arrays on the current device; `stream` is the caller's
+// cudaStream_t. Returns a CUDA error code: cudaGetLastError() after the
+// launch, or the error of the launch's set-up.
 extern "C" int distance_matrix_f32(const float* Q, const float* X, int B,
                                    int N, int d, int metric, float* out,
                                    void* stream) {
   if (B < 0 || N < 0 || d < 0 || metric < kL2 || metric > kCos)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
-  const long long tiles_m = (B + kBM - 1) / kBM;
-  const long long tiles_n = (N + kBN - 1) / kBN;
-  if (tiles_m * tiles_n > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>(tiles_m * tiles_n);
+  const long long tiles_m = (B + kMaxQ - 1) / kMaxQ;
+  const long long tiles_n = (N + kRows - 1) / kRows;
+  const long long n_tiles = tiles_m * tiles_n;
+  if (n_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = (d % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(Q) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(X) % 16 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tm = static_cast<int>(tiles_m);
   switch (metric) {
-    case kL2: launch<kL2>(Q, X, B, N, d, tm, blocks, vec, out, s); break;
-    case kIp: launch<kIp>(Q, X, B, N, d, tm, blocks, vec, out, s); break;
-    default: launch<kCos>(Q, X, B, N, d, tm, blocks, vec, out, s); break;
+    case kL2: return launch_metric<kL2>(Q, X, B, N, d, tm, n_tiles, vec, out, s);
+    case kIp: return launch_metric<kIp>(Q, X, B, N, d, tm, n_tiles, vec, out, s);
+    default: return launch_metric<kCos>(Q, X, B, N, d, tm, n_tiles, vec, out, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }

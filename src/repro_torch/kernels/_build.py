@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own into a shared library under ``build/kernels/`` at the repository
 root, named by a hash of its source and flags so an edited source never
 loads a stale build. All missing libraries are compiled at once, one
-``nvcc`` process per source, and loaded with :mod:`ctypes`. Nothing
-happens at import: the CPU tests import every module on a machine
-without ``nvcc``.
+``nvcc`` process per source, and loaded with :mod:`ctypes`; each build's
+compiler output, with ptxas's registers and spills of every kernel, is
+kept in :data:`LOGS`. Nothing happens at import: the CPU tests import
+every module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,9 +25,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# the compiler's output of each source built by this process, by name
+LOGS: Dict[str, str] = {}
 
 
 def sources() -> List[Path]:
@@ -76,6 +80,7 @@ def build_all() -> Dict[str, Path]:
     failed = []
     for src, tmp, lib, proc in jobs:
         out, _ = proc.communicate()
+        LOGS[src.stem] = out
         if proc.returncode != 0:
             failed.append(f"{src.name} (exit {proc.returncode}):\n{out}")
             continue

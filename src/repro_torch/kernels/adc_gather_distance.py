@@ -5,12 +5,14 @@ Replaces ``src/repro/kernels/adc_gather_distance.py`` ::
 ``adc_gather_distance_pallas`` and ``adc_gather_distance_batch_pallas``.
 The table is a uint8 code slab or payload, one row of M codes a vector;
 the caller has built each query's (L, M, 256) lookup table
-(``repro_torch.core.pq.build_lut``). One block takes one query and a tile
-of its ids, stages the query's table through shared memory in 32 KiB
-chunks, and each thread sums its id's M entries left to right in float32,
+(``repro_torch.core.pq.build_lut``). One warp takes one (query, id)
+slot: its lanes read the id's code row and gather the M table entries
+it selects straight from global memory, where ``build_lut`` has just
+left the table in L2, and one lane sums them left to right in float32,
 so the output equals ``pq.adc_distance_np`` bit for bit and no decoded
-vector is made. Bound: bytes (the tables, then the distinct code rows);
-see the source for what the design does about it.
+vector or staged table is made. Bound: bytes (the selected entries and
+the distinct code rows), in practice two dependent round trips a slot;
+see the source.
 
 Its plain PyTorch version is ``ref.adc_gather_distance_batch_ref``; the
 dispatch on the tensor's device is :mod:`repro_torch.kernels.ops`.
@@ -63,8 +65,6 @@ def _launch(
         raise ValueError(
             f"luts has shape {tuple(luts.shape)}, expected "
             f"{(B, L, M, N_CENTROIDS)} for {metric}")
-    if B > 65535:
-        raise ValueError(f"at most 65,535 queries a launch, got {B}")
     out = torch.empty((B, K), dtype=torch.float32, device=dev)
     if B * K == 0:
         return out

@@ -2,12 +2,17 @@
 
 Replaces ``src/repro/kernels/distance.py`` :: ``distance_matrix_pallas``:
 (B, d) × (N, d) → (B, N) float32 in the reference's GEMM form, as the
-flat scan's local step. The kernel is a tiled float32 GEMM on the CUDA
-cores (no TF32, no tensor cores) that sums the row norms from the tiles
-it stages, applies the metric in its epilogue (cos divides by the norms
-there, instead of normalising the table) and masks the ragged edges
-itself, so no padded copy of the table is made. Bound: bytes at the
-scan's shape, the table read once; see the source.
+flat scan's local step and recsys' candidate retrieval. The kernel
+streams the table through a ring of ``cp.async`` stages and takes the
+products on the tensor cores in 3×TF32: each element is split into two
+TF32 parts (rounded, not truncated) and three ``mma.sync`` products
+(lo·hi, hi·lo, hi·hi) go into float32 accumulators, which keeps the
+distances to about float32 accuracy where plain TF32 would not. The row
+norms are summed in float32 from the staged tiles, the metric is applied
+in the epilogue (cos divides by the norms there, instead of normalising
+the table) and the ragged edges are masked in the kernel, so no padded
+copy of the table is made. Bound: bytes, the table read once; see the
+source.
 
 Its plain PyTorch version is ``ref.distance_matrix_ref``; the dispatch on
 the tensor's device is :mod:`repro_torch.kernels.ops`.

@@ -13,10 +13,11 @@ rtol 1e-5, atol 1e-4 (the dequantized elements themselves are equal: the
 kernel dequantizes with one unfused multiply, as the plain version does).
 The ADC kernel sums its table entries in the plain version's order with
 IEEE operations, so it must match exactly, and equal the numpy oracle
-``pq.adc_distance_np`` too. The distance-matrix kernel sums d products in
-another order than the plain version's float32 matmul (TF32 off), so it
-matches to 1e-5 of the scale of its terms: |q|² + |x|² for l2, |q|·|x|
-for ip, 1 for cos. The top-k kernel only selects, so it matches exactly.
+``pq.adc_distance_np`` too. The distance-matrix kernel forms its
+products on the tensor cores in 3×TF32 (each element split into two TF32
+parts, three products a pair) and sums them in another order than the
+plain version's float32 matmul (TF32 off), so it matches to 1e-5 of the
+scale of its terms: |q|² + |x|² for l2, |q|·|x| for ip, 1 for cos. The top-k kernel only selects, so it matches exactly.
 The embedding-bag kernel sums each column in slot order with IEEE
 operations, as its plain version does, so it matches exactly; the recsys
 models on the card match their CPU forward to rtol 1e-4, atol 1e-5 (float32
@@ -145,12 +146,13 @@ def _adc_inputs(seed, n, M, B, K, metric, dsub=4):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("M", [32, 192, 8, 20])  # chunks; 16-byte / byte path
+# 16-byte code path (32, 192, 300 past the 256-subspace chunk: 16-byte
+# loads need M % 16 == 0, so 300 takes the byte path); byte path (8, 20)
+@pytest.mark.parametrize("M", [32, 192, 8, 20, 300])
 def test_adc_gather_distance_kernel_equals_plain_and_oracle(cuda, metric,
                                                             M):
     """Both ADC forms on the card equal the plain version and the numpy
-    oracle under array_equal; M = 192 takes several 32 KiB table chunks
-    (12 at cos)."""
+    oracle under array_equal; M = 300 takes two chunks of subspaces."""
     codes, luts, ids = _adc_inputs(5, n=300, M=M, B=8, K=97, metric=metric)
     C, T, I = (torch.from_numpy(a).to(cuda) for a in (codes, luts, ids))
     before = ops.launch_counts()
@@ -168,6 +170,29 @@ def test_adc_gather_distance_kernel_equals_plain_and_oracle(cuda, metric,
     oracle = pq.adc_distance_batch_np(codes, luts, ids, metric)
     np.testing.assert_array_equal(got.cpu().numpy(), oracle)
     assert torch.isinf(got[I < 0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("M,B,K", [(192, 1, 97), (192, 3, 33), (512, 3, 97),
+                                   (300, 1, 5)])
+def test_adc_gather_distance_kernel_ragged_slots(cuda, metric, M, B, K):
+    """A warp a (query, id) slot, four a block: B·K slots that leave the
+    last block part empty (97, 99, 291, 5), ids −1 and past the end, M
+    past one chunk (512: two full chunks on the 16-byte path), the
+    fused bulk load's (1, 97): both forms equal the plain version and the
+    oracle, and the single form equals the batched form's row."""
+    codes, luts, ids = _adc_inputs(11, n=400, M=M, B=B, K=K, metric=metric)
+    C, T, I = (torch.from_numpy(a).to(cuda) for a in (codes, luts, ids))
+    got = ops.adc_gather_distance_batch(C, T, I, metric)
+    rows = [ops.adc_gather_distance(C, T[b], I[b], metric) for b in range(B)]
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.adc_gather_distance_batch_ref(C, T, I, metric))
+    for b in range(B):
+        assert torch.equal(rows[b], got[b])
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), pq.adc_distance_batch_np(codes, luts, ids, metric))
+    assert torch.isinf(got[I < 0]).all() and torch.isfinite(got[I >= 0]).all()
 
 
 @pytest.mark.cuda
@@ -430,8 +455,13 @@ def scaled_error(got, want, Q, X, metric):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("B,N,d", [(1, 1, 1), (3, 1000, 5), (32, 4097, 768),
-                                   (129, 20000, 768)])
+@pytest.mark.parametrize("B,N,d", [
+    (1, 1, 1), (3, 1000, 5), (32, 4097, 768), (129, 20000, 768),
+    # the 3×TF32 kernel's edges: its tile is 128 rows by 8, 16 or 32
+    # queries, its ring takes 32-deep slices by 16-byte copies, 4-byte
+    # copies where d % 4 != 0
+    (1, 1000, 64), (8, 3001, 770), (33, 5000, 64), (33, 1001, 770),
+    (8, 300, 36)])
 def test_distance_matrix_kernel_matches_plain(cuda, metric, B, N, d):
     assert not torch.backends.cuda.matmul.allow_tf32
     rng = np.random.default_rng(B + N + d)
@@ -446,6 +476,78 @@ def test_distance_matrix_kernel_matches_plain(cuda, metric, B, N, d):
     want = ref.distance_matrix_ref(Q, X, metric)
     assert got.shape == (B, N) and bool(torch.isfinite(got).all())
     assert scaled_error(got, want, Q, X, metric) <= 1e-5
+
+
+def _dm_inputs(seed, B, N, d, cuda, offset=0):
+    """Gaussian Q (B, d) and X (N, d) on the card; X starts ``offset``
+    floats into its buffer (1: a base off the 16-byte boundary)."""
+    rng = np.random.default_rng(seed)
+    Q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    buf = torch.from_numpy(rng.standard_normal(offset + N * d).astype(
+        np.float32)).to(cuda)
+    X = buf[offset:].view(N, d)
+    return Q.to(cuda), X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("B,N,d", [(1, 1000, 64), (16, 129, 64)])
+def test_distance_matrix_kernel_unaligned_table(cuda, metric, B, N, d):
+    """X a view one float into its buffer, off the 16-byte boundary: the
+    kernel takes its 4-byte copies, within 1e-5 of the scale."""
+    Q, X = _dm_inputs(B * N + d, B, N, d, cuda, offset=1)
+    assert X.data_ptr() % 16 != 0 and X.is_contiguous()
+    got = ops.distance_matrix(Q, X, metric)
+    want = ref.distance_matrix_ref(Q, X, metric)
+    torch.cuda.synchronize()
+    assert got.shape == (B, N) and bool(torch.isfinite(got).all())
+    assert scaled_error(got, want, Q, X, metric) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_distance_matrix_kernel_at_retrieval_shape(cuda):
+    """Retrieval's (1, N, 64) ip at N = 200,000 (a persistent grid walks
+    1,563 tiles), within 1e-5 of the scale."""
+    Q, X = _dm_inputs(7, 1, 200_000, 64, cuda)
+    got = ops.distance_matrix(Q, X, "ip")
+    want = ref.distance_matrix_ref(Q, X, "ip")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert scaled_error(got, want, Q, X, "ip") <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_distance_matrix_kernel_padding_row(cuda, metric):
+    """A table row of 3.4e38, as the substrate pads its shards: the
+    kernel runs to its end, and every other column equals the plain
+    version within 1e-5 of the scale."""
+    Q, X = _dm_inputs(9, 32, 1000, 768, cuda)
+    X[517] = float(D.PAD_VALUE)
+    got = ops.distance_matrix(Q, X, metric)
+    torch.cuda.synchronize()
+    want = ref.distance_matrix_ref(Q, X, metric)
+    keep = torch.ones(1000, dtype=torch.bool, device=cuda)
+    keep[517] = False
+    assert bool(torch.isfinite(got[:, keep]).all())
+    assert scaled_error(got[:, keep], want[:, keep], Q, X[keep],
+                        metric) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_distance_matrix_kernel_keeps_nan(cuda, metric):
+    """A NaN in a query or a table row comes out NaN in that row or
+    column, as in the plain version (the TF32 split alone may drop it;
+    the norms carry it)."""
+    Q, X = _dm_inputs(13, 4, 300, 64, cuda)
+    X[7, 3] = float("nan")
+    Q[2, 5] = float("nan")
+    got = ops.distance_matrix(Q, X, metric)
+    want = ref.distance_matrix_ref(Q, X, metric)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[:, 7]).all() and torch.isnan(got[2]).all())
 
 
 def _topk_cases():

@@ -8,7 +8,9 @@ gather-distance and the dequant-gather-distance within float32 tolerance
 kernel also normalises the query first, another rounding), the merge
 exactly (it only selects). The kernels
 against their plain versions are in ``test_torch_cuda.py``: they need
-the card, where JAX is not installed.
+the card, where JAX is not installed. The distance-matrix kernel's
+3×TF32 arithmetic is emulated here in numpy and held to the card's
+tolerance against float64.
 """
 
 import dataclasses
@@ -33,6 +35,7 @@ from repro.kernels.gather_distance import (
 from repro.kernels.topk import merge_topk_pallas
 from repro_torch.core import distances as PD
 from repro_torch.core import search as PS
+from repro_torch.data.synthetic import corpus_embeddings
 from repro_torch.kernels import ops
 
 METRICS = ["l2", "ip", "cos"]
@@ -370,3 +373,114 @@ def test_ops_run_plain_versions_on_cpu_tensors():
         "adc_gather_distance": 0, "adc_gather_distance_batch": 0,
         "merge_topk": 0, "topk": 0, "distance_matrix": 0,
         "embedding_bag": 0}
+
+
+# ------------------------------------------------ distance matrix, 3×TF32
+
+# the distance-matrix kernel's tolerance on the card, of the metric's
+# scale: |q|² + |x|² for l2, |q|·|x| for ip, 1 for cos
+DM_TOL = 1e-5
+
+
+def _tf32(v):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: the magnitude bits
+    plus half of the dropped 13 bits' unit, then the 13 bits cleared."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_gemm(Q, X):
+    """q·x for every pair as ``csrc/distance_matrix.cu`` sums it, and with
+    the hi·hi product alone (plain TF32): ``(three, plain)``, (B, N)
+    float32. Each element splits into hi = tf32(v) and lo = tf32(v - hi);
+    each k-step of 8 adds its x_lo·q_hi, x_hi·q_lo and x_hi·q_hi sums, in
+    that order, to a float32 accumulator. The products of TF32 values and
+    their 8-term sums are exact in float64; each add to the accumulator
+    rounds once to float32."""
+    (B, d), N = Q.shape, X.shape[0]
+    S = d // 8
+    qh, xh = _tf32(Q), _tf32(X)
+    ql, xl = _tf32(Q - qh), _tf32(X - xh)
+
+    def steps(x, q):  # (S, B, N): each k-step's exact sum
+        x = np.ascontiguousarray(
+            x.astype(np.float64).reshape(N, S, 8).transpose(1, 2, 0))
+        q = np.ascontiguousarray(
+            q.astype(np.float64).reshape(B, S, 8).transpose(1, 0, 2))
+        return np.matmul(q, x)
+
+    lh, hl, hh = steps(xl, qh), steps(xh, ql), steps(xh, qh)
+    three = np.zeros((B, N), np.float32)
+    plain = np.zeros((B, N), np.float32)
+    for s in range(S):
+        for part in (lh[s], hl[s], hh[s]):
+            three = (three + part).astype(np.float32)
+        plain = (plain + hh[s]).astype(np.float32)
+    return three, plain
+
+
+def _metric_error(g, Q, X, metric):
+    """The kernel's epilogue on ``g`` (float32, with float32 norms), its
+    largest error against float64 in units of the metric's scale."""
+    qn = (Q * Q).sum(1, dtype=np.float32)[:, None]
+    xn = (X * X).sum(1, dtype=np.float32)[None, :]
+    Q64, X64 = Q.astype(np.float64), X.astype(np.float64)
+    g64 = Q64 @ X64.T
+    qn64 = (Q64 ** 2).sum(1)[:, None]
+    xn64 = (X64 ** 2).sum(1)[None, :]
+    if metric == "l2":
+        got = np.maximum(qn + xn - np.float32(2) * g, np.float32(0))
+        want, scale = np.maximum(qn64 + xn64 - 2 * g64, 0), qn64 + xn64
+    elif metric == "ip":
+        got, want, scale = -g, -g64, np.sqrt(qn64 * xn64)
+    else:
+        eps = np.float32(1e-30)
+        got = -g / ((np.sqrt(qn) + eps) * (np.sqrt(xn) + eps))
+        want, scale = -g64 / np.sqrt(qn64 * xn64), 1.0
+    return float((np.abs(got.astype(np.float64) - want) / scale).max())
+
+
+@pytest.fixture(scope="module")
+def tf32_cases():
+    """Two inputs and their emulated products: Gaussian at the card
+    tests' (32, 4,097, 768), and 32 noisy corpus rows against 2,048
+    corpus rows (|x|² ~ 860, the flat scan's data)."""
+    rng = np.random.default_rng(17)
+    Q = rng.standard_normal((32, 768)).astype(np.float32)
+    X = rng.standard_normal((4_097, 768)).astype(np.float32)
+    C = corpus_embeddings(2_048, 768, seed=13)
+    Qc = (C[rng.integers(0, len(C), 32)]
+          + 0.05 * rng.standard_normal((32, 768))).astype(np.float32)
+    return {name: (q, x, *_tf32_gemm(q, x))
+            for name, (q, x) in (("gauss", (Q, X)), ("corpus", (Qc, C)))}
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)  # TF32's unit at 1
+    v = np.array([one + ulp / 4, one + ulp / 2, one + 3 * ulp / 4,
+                  -(one + ulp / 2), one + ulp + ulp / 2], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(v), np.array([one, one + ulp, one + ulp, -(one + ulp),
+                            one + 2 * ulp], np.float32))
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(10_000).astype(np.float32) * 1e3
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    # hi + lo holds x to about 2^-22 of its size, hi alone to 2^-11
+    rel = np.abs((hi.astype(np.float64) + lo) - x) / np.abs(x)
+    assert rel.max() <= 2.0 ** -21
+    assert (np.abs(hi.astype(np.float64) - x) / np.abs(x)).max() <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("case", ["gauss", "corpus"])
+def test_distance_matrix_3xtf32_within_tolerance(tf32_cases, case, metric):
+    """The kernel's 3×TF32 sums stay within DM_TOL of float64 at every
+    metric; plain TF32 (hi·hi alone) does not, which is why it stays
+    ruled out."""
+    Q, X, three, plain = tf32_cases[case]
+    assert _metric_error(three, Q, X, metric) <= DM_TOL
+    assert _metric_error(plain, Q, X, metric) > DM_TOL
