@@ -48,6 +48,14 @@ the script exits non-zero:
      engine, a tier 2 of 480,000 bytes bit-equal to the CPU engine's,
      one rerank access, a fused payload of uint8 codes only, and the ADC
      kernel's launches;
+   then every path's layer search replayed from CUDA graphs held to its
+   eager loop (phase 4d): the single driver's and the batched driver's
+   phases (``search.batch_search_phase`` against
+   ``batch_search_phase_eager``) and the fused driver's layer
+   (``search_layer_lazy_fused`` against its ``_eager`` form) at float32,
+   int8, float16 and pq, from one partly warm tier 2, with
+   ``torch.equal`` on every state tensor after every phase, tier 2, the
+   fused counters and every kernel's launches equal;
    then the distributed substrate at world size 1 over NCCL: the flat
    scan (``distributed_brute_force``, k = 10, l2) over the paper's own
    480,000 x 768 corpus, checked for recall@10 >= 0.999 against brute
@@ -72,7 +80,12 @@ the script exits non-zero:
    retrieval's shape, each beside ``torch.topk``; the distance matrix at
    the flat scan's and retrieval's shapes beside ``torch.matmul``),
    the end-to-end latency of batched, single-query and fused searches at
-   each precision, and of the flat scan, with the device's idle share.
+   each precision, each beside one more search's host launches (kernel
+   and graph launches, from the profiler), device busy and idle share,
+   and host syncs (``count_syncs``); the sweep of K, the hop steps
+   between two host checks (``search.STEPS_PER_SYNC``), over 1, 2, 4, 8
+   and 16 at float32 in the three drivers; the flat scan's latency, with
+   the device's idle share.
 
 Standard output ends with four lines: every number of the run as one
 ``record:`` JSON object (also written to ``build/chip_smoke.json``),
@@ -90,6 +103,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -156,6 +170,11 @@ class Shape:
         return self.ef + self.degree + 1
 
 
+def stamp(record: dict, phase: str) -> None:
+    """The seconds since the run began at which ``phase`` starts."""
+    record["started_s"][phase] = time.perf_counter() - record["t0"]
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -167,6 +186,7 @@ def load_port():
     import repro_torch.core.engine as engine
     from repro_torch import convert
     from repro_torch.core import pq, quant
+    from repro_torch.core import search, step_graph, store
     from repro_torch.core.eval import brute_force_topk, recall_at_k
     from repro_torch.core.hnsw import build_hnsw
     from repro_torch.core.storage import InMemoryBackend
@@ -188,7 +208,7 @@ def load_port():
         convert=convert, quant=quant, pq=pq, InMemoryBackend=InMemoryBackend,
         distributed=distributed, mesh=mesh, topk_max_k=TOPK_MAX_K,
         configs=configs, click_batches=click_batches, embeddings=embeddings,
-        recsys=recsys,
+        recsys=recsys, search=search, step_graph=step_graph, store=store,
     )
 
 
@@ -920,6 +940,193 @@ def check_rerank_access(port, shape: Shape, X, graph, Q,
                   and eng.access_stats.n_db == 2,
                   f"{key}: a warm batch costs one rerank access")
             out[key + "_batch"] = many.batch_stats.n_db
+    return out
+
+
+# ----------------------------------------------------------- phase 4d
+
+
+def _loop_store(port, shape: Shape, X, precision: str, codebook, dev):
+    """A FIFO tier 2 at the query path's size, a third of it warm."""
+    st = port["store"]
+    store = st.TieredStore(st.ExternalStore(X), capacity=shape.cache,
+                           device=dev, precision=precision,
+                           codebook=codebook)
+    store.warm(np.arange(0, shape.n, 12)[: shape.cache // 3])
+    return store
+
+
+def _phase_trace(port, shape: Shape, X, graph, Q, precision, codebook,
+                 phase, B: int, dev) -> dict:
+    """One layer-0 search of the first B queries by the host drivers'
+    steps (phases through ``phase``, a host fetch and a load phase
+    between them): the state tensors after every phase, tier 2 and the
+    launch counts."""
+    S, ops, sg = port["search"], port["ops"], port["step_graph"]
+    store = _loop_store(port, shape, X, precision, codebook, dev)
+    nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    Qt = torch.as_tensor(Q[:B], device=dev)
+    luts = (port["pq"].build_lut(Qt, store.cache.codebook, "l2")
+            if precision == "pq" else None)
+    sg.reset_stats()
+    ops.reset_launch_counts()
+    states = S.batch_make_state(B, shape.ef, shape.miss_cap, shape.n, dev)
+    states = S.batch_seed_state(
+        states, Qt, torch.full((B, 1), graph.entry_point, dtype=torch.int32,
+                               device=dev),
+        S.cache_tier2(store.cache, luts), "l2")
+    trace = []
+    for _ in range(200):
+        states = phase(Qt, nbrs[0], states, S.cache_tier2(store.cache, luts),
+                       "l2", shape.ef)
+        trace.append(S._state_tensors(states))
+        if int(states.miss_count.sum()) == 0:
+            break
+        rows, pos = store.gather_batch(states.miss_ids.cpu().numpy())
+        states = S.batch_load_phase(Qt, states, states.miss_ids, rows, pos,
+                                    "l2")
+    torch.cuda.synchronize()
+    return dict(trace=trace, tier2=port["convert"].cache_to_numpy(store.cache),
+                launches=ops.launch_counts(), stats=dict(sg.stats))
+
+
+def _fused_trace(port, shape: Shape, X, graph, Q, precision, codebook,
+                 layer_fn, dev, n_queries: int = 2) -> dict:
+    """Layer 0 of the fused driver for the first queries, one tier 2
+    between them: state, device counters and tier 2 after each, and the
+    launch counts."""
+    S, ops, sg = port["search"], port["ops"], port["step_graph"]
+    quant, pq = port["quant"], port["pq"]
+    store = _loop_store(port, shape, X, precision, codebook, dev)
+    if precision == "pq":
+        payload = torch.as_tensor(pq.encode_np(X, codebook.centroids),
+                                  device=dev)
+        scales = None
+    else:
+        payload, sc = quant.quantize_np(X, precision)
+        scales = (torch.as_tensor(sc, device=dev)
+                  if payload.dtype == np.int8 else None)
+        payload = torch.as_tensor(payload, device=dev)
+    nbrs = torch.as_tensor(graph.neighbors, device=dev)
+    entry = torch.tensor([graph.entry_point], dtype=torch.int32, device=dev)
+    sg.reset_stats()
+    ops.reset_launch_counts()
+    cache, out = store.cache, []
+    for q in torch.as_tensor(Q[:n_queries], device=dev):
+        luts = (pq.build_lut(q, cache.codebook, "l2")[None]
+                if precision == "pq" else None)
+        st, cache, n_db, n_fetch = layer_fn(
+            q, nbrs[0], payload, scales, cache, entry, shape.ef, "l2",
+            eviction=store.eviction, luts=luts)
+        out.append((S._state_tensors(st), int(n_db), int(n_fetch),
+                    port["convert"].cache_to_numpy(cache)))
+    torch.cuda.synchronize()
+    return dict(trace=[o[0] for o in out], counts=[o[1:3] for o in out],
+                tier2=out[-1][3], launches=ops.launch_counts(),
+                stats=dict(sg.stats))
+
+
+def _same_states(a, b) -> bool:
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(u.dtype == v.dtype and torch.equal(u, v)
+                                 for u, v in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def check_graph_replay(port, shape: Shape, X, graph, Q, codebook) -> dict:
+    """Every path's layer search replayed from CUDA graphs against its
+    eager loop on the card, on the same inputs: the single driver's (B =
+    1) and the batched driver's (B = 32) phases through
+    ``search.batch_search_phase`` and ``batch_search_phase_eager``, the
+    fused driver's layer through ``search.search_layer_lazy_fused`` and
+    ``search_layer_lazy_fused_eager``, at float32, int8, float16 and pq:
+    ``torch.equal`` on every state tensor after every phase (or query),
+    tier 2 and the fused counters equal, the same launches of every
+    kernel, and graph replays on the graph side only."""
+    S = port["search"]
+    dev = torch.device("cuda")
+    out = {}
+    for precision in PRECISIONS + ("pq",):
+        cb = codebook if precision == "pq" else None
+        rec = {}
+        for driver, B in (("single", 1), ("batched", shape.batch),
+                          ("fused", 1)):
+            what = f"graph replay, {precision} {driver}"
+            if driver == "fused":
+                runs = {name: _fused_trace(port, shape, X, graph, Q,
+                                           precision, cb, fn, dev)
+                        for name, fn in (
+                            ("graph", S.search_layer_lazy_fused),
+                            ("eager", S.search_layer_lazy_fused_eager))}
+                check(runs["graph"]["counts"] == runs["eager"]["counts"],
+                      f"{what}: device counters equal the eager loop's")
+            else:
+                runs = {name: _phase_trace(port, shape, X, graph, Q,
+                                           precision, cb, fn, B, dev)
+                        for name, fn in (
+                            ("graph", S.batch_search_phase),
+                            ("eager", S.batch_search_phase_eager))}
+            g, e = runs["graph"], runs["eager"]
+            check(_same_states(g["trace"], e["trace"]),
+                  f"{what}: every state tensor equals the eager loop's")
+            check(all(np.array_equal(g["tier2"][f], e["tier2"][f])
+                      for f in e["tier2"]),
+                  f"{what}: tier 2 equals the eager loop's")
+            check(g["launches"] == e["launches"],
+                  f"{what}: launches equal the eager loop's "
+                  f"({g['launches']} against {e['launches']})")
+            check(g["stats"]["replays"] > 0 and e["stats"]["replays"] == 0
+                  and g["stats"]["syncs"] == e["stats"]["syncs"],
+                  f"{what}: replays on the graph side only, the same host "
+                  f"checks ({g['stats']} against {e['stats']})")
+            rec[driver] = dict(
+                phases_or_queries=len(g["trace"]), **g["stats"],
+                launches={k: n for k, n in g["launches"].items() if n})
+        out[precision] = rec
+    return out
+
+
+# the K sweep: hop steps between two host checks of a loop
+SWEEP_KS = (1, 2, 4, 8, 16)
+
+
+def sweep_steps_per_sync(port, shape: Shape, X, engines: dict,
+                         n_batches: int = 4, n_single: int = 12) -> dict:
+    """Search latency at each K in SWEEP_KS on warm engines (``engines``
+    maps a path to ``(kind, engine)``): per K and path one search to
+    capture, then ``n_batches`` batches or ``n_single`` queries timed;
+    the K values in order and then in reverse, so a drift of the host
+    falls on every K alike. Also the loop's host checks and graph
+    replays per search at each K. The module's own K is restored."""
+    S, sg = port["search"], port["step_graph"]
+    k0 = S.STEPS_PER_SYNC
+    acc = {name: {K: {"lat": [], "checks": 0, "replays": 0}
+                  for K in SWEEP_KS} for name in engines}
+    try:
+        for rnd, ks in enumerate((SWEEP_KS, SWEEP_KS[::-1])):
+            for K in ks:
+                S.STEPS_PER_SYNC = K
+                for name, (kind, eng) in engines.items():
+                    _timed_searches(port, shape, X, eng, kind, 1,
+                                    seed=400 + K)
+                    sg.reset_stats()
+                    n = n_batches if kind == "batched" else n_single
+                    lat, _ = _timed_searches(port, shape, X, eng, kind, n,
+                                             seed=450 + 1000 * rnd + 10 * K)
+                    a = acc[name][K]
+                    a["lat"] += lat
+                    a["checks"] += sg.stats["syncs"]
+                    a["replays"] += sg.stats["replays"]
+    finally:
+        S.STEPS_PER_SYNC = k0
+    out = {}
+    for name, per_k in acc.items():
+        out[name] = {}
+        for K, a in per_k.items():
+            n = len(a["lat"])
+            out[name][str(K)] = dict(_latency(a["lat"]),
+                                     loop_checks_per_search=a["checks"] / n,
+                                     replays_per_search=a["replays"] / n)
     return out
 
 
@@ -1860,6 +2067,67 @@ def profile_batched(port, shape: Shape, X, eng) -> dict:
                         port["kernel_names"])
 
 
+# CUDA runtime and driver calls the profiler records on the host: what
+# puts work on the card (kernel and graph launches, copies, fills)
+HOST_CALLS = re.compile(
+    r"^cu(da)?(LaunchKernel|GraphLaunch|MemcpyAsync|MemsetAsync)")
+HOST_LAUNCHES = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch)")
+
+
+def count_syncs(run) -> dict:
+    """``run()`` with its host syncs counted: the implicit ones (a copy to
+    the host, ``bool``/``int`` of a card tensor), which PyTorch's sync
+    debug mode reports one warning each, and explicit
+    ``torch.cuda.synchronize`` calls."""
+    explicit = [0]
+    real = torch.cuda.synchronize
+
+    def counting(*args, **kw):
+        explicit[0] += 1
+        return real(*args, **kw)
+
+    torch.cuda.synchronize = counting
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize = real
+    implicit = sum("synchronizing" in str(w.message) for w in caught)
+    return {"implicit": implicit, "explicit": explicit[0],
+            "total": implicit + explicit[0]}
+
+
+def search_costs(port, shape: Shape, X, eng, kind: str) -> dict:
+    """One more search on a warm path (a fresh batch or query) under the
+    profiler: host launches (kernel and graph), device busy and idle
+    share; one more with its host syncs counted; the loop's host checks
+    and graph replays over both."""
+    # a tree from before the graph-replayed loop has no step_graph
+    E, sg = port["engine"], port.get("step_graph")
+    Qs = [make_queries(X, shape.batch, seed=seed) for seed in (700, 701)]
+    if kind != "batched":
+        Qs = [q[0] for q in Qs]
+    if sg is not None:
+        sg.reset_stats()
+    prof = profile_call(
+        lambda: eng.search(E.SearchRequest(query=Qs[0], k=shape.k)),
+        port["kernel_names"])
+    syncs = count_syncs(
+        lambda: eng.search(E.SearchRequest(query=Qs[1], k=shape.k)))
+    out = {"host_launches": prof["host_launches"],
+           "runtime_calls": prof["runtime_calls"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_idle_share": prof["device_idle_share"],
+           "profiled_wall_ms": prof["wall_ms"], "syncs": syncs}
+    if sg is not None:
+        out.update(loop_checks_2_searches=sg.stats["syncs"],
+                   graph_replays_2_searches=sg.stats["replays"])
+    return out
+
+
 def profile_call(run, port_kernels) -> dict:
     """``run()`` under torch.profiler: the device's busy time (the sum of
     its kernels, which run on one stream) against the wall time, and
@@ -1884,11 +2152,16 @@ def profile_call(run, port_kernels) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     # the port's kernels sit in their files' anonymous namespaces
     own = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)")
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    averages = prof.key_averages()
+    host = sorted(averages, key=lambda e: -e.self_cpu_time_total)
+    runtime = {e.key: e.count for e in averages if HOST_CALLS.match(e.key)}
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_idle_share=(1.0 - busy_us / wall_us) if busy_us else None,
         kernel_launches=sum(n for n, _ in kernels.values()),
+        host_launches=sum(n for k, n in runtime.items()
+                          if HOST_LAUNCHES.match(k)),
+        runtime_calls=runtime,
         top_kernels=[dict(name=k[:80], n=n, ms=us / 1e3)
                      for k, (n, us) in top],
         port_kernels=[dict(name=k[:80], n=n, ms=us / 1e3)
@@ -1911,7 +2184,8 @@ def main() -> int:
     port = load_port()  # ImportError outside the repository
     shape = Shape()
     dev = torch.device("cuda")
-    record = {"shape": dataclasses.asdict(shape)}
+    record = {"shape": dataclasses.asdict(shape), "started_s": {},
+              "t0": time.perf_counter()}
 
     # 1. device
     card = device_line()
@@ -1920,6 +2194,7 @@ def main() -> int:
     record["card"] = card
 
     # 2. build
+    stamp(record, "build")
     t0 = time.perf_counter()
     libs = port["build"].build_all()
     for name in libs:
@@ -1931,6 +2206,7 @@ def main() -> int:
           flush=True)
 
     # 3. kernels against their plain versions
+    stamp(record, "kernels_vs_plain")
     rng = np.random.default_rng(0)
     err = check_kernels(port, shape, dev, rng)
     err.update(check_flat_kernels(port, dev, rng))
@@ -1941,6 +2217,8 @@ def main() -> int:
           "ADC, topk and embedding_bag exact)", flush=True)
 
     # 4. the query path
+    stamp(record, "query_paths")
+    torch.cuda.reset_peak_memory_stats()
     X = port["corpus_embeddings"](shape.n, shape.dim, seed=CORPUS_SEED)
     t0 = time.perf_counter()
     graph = port["build_hnsw"](X, M=shape.M,
@@ -1971,6 +2249,7 @@ def main() -> int:
           flush=True)
     runs = {"float32": run}
     # the quantized tier 2 with its exact rerank
+    stamp(record, "quantized_paths")
     for precision in QUANT:
         q_run = run_query_path(port, shape, "cuda", X, graph, Q,
                                precision=precision)
@@ -1987,6 +2266,7 @@ def main() -> int:
         print(f"query path, {precision}: "
               f"{json.dumps(record[f'query_path_{precision}'])}", flush=True)
     # the fused driver at every precision
+    stamp(record, "fused_paths")
     for precision in PRECISIONS:
         f_run = run_query_path(port, shape, "cuda", X, graph, Q, ("fused",),
                                precision=precision, fused=True)
@@ -2003,6 +2283,7 @@ def main() -> int:
         runs[key] = f_run
         print(f"query path, {key}: {json.dumps(record[key])}", flush=True)
     # product quantization over one codebook trained here, on the card
+    stamp(record, "pq_paths")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     codebook = port["pq"].train_pq(X, n_subspaces=PQ_SUBSPACES,
@@ -2034,7 +2315,19 @@ def main() -> int:
           flush=True)
     record["rerank_access"] = check_rerank_access(port, shape, X, graph, Q,
                                                   codebook)
+    record["peak_device_bytes_query_paths"] = torch.cuda.max_memory_allocated()
+    record["graph_captures_alive"] = port["step_graph"].n_captures()
+    # 4d. each path's graph-replayed layer search against its eager loop
+    stamp(record, "graph_replay")
+    t0 = time.perf_counter()
+    record["graph_replay"] = check_graph_replay(port, shape, X, graph, Q,
+                                                codebook)
+    record["graph_replay_s"] = time.perf_counter() - t0
+    print(f"graph replay = eager loop, bit for bit, K = "
+          f"{port['search'].STEPS_PER_SYNC}: "
+          f"{json.dumps(record['graph_replay'])}", flush=True)
     # 4b. the distributed substrate: flat scan at 480k, hnsw mode
+    stamp(record, "substrate")
     sub = run_substrate(port, shape, dev)
     record["substrate"] = sub["record"]
     for mode, counts in sub["launches"].items():
@@ -2042,6 +2335,7 @@ def main() -> int:
         for kname, n in counts.items():
             launches[kname] += n
     # 4c. the recsys serving slice
+    stamp(record, "recsys")
     rec = run_recsys(port, dev)
     record["recsys"] = rec["record"]
     for path, counts in rec["launches"].items():
@@ -2055,6 +2349,7 @@ def main() -> int:
           flush=True)
 
     # 5. times
+    stamp(record, "times")
     rows = time_kernels(port, shape, dev, rng, launches, err)
     rows += time_dequant_kernels(port, shape, dev, rng, launches, err)
     rows += time_adc_kernels(port, shape, dev, rng, launches, err)
@@ -2080,17 +2375,30 @@ def main() -> int:
     engines["pq_batched"] = ("batched", r["batched"])
     engines["pq_single"] = ("single", r["single"])
     engines["fused_pq"] = ("single", r["fused"])
+    torch.cuda.reset_peak_memory_stats()
     e2e = time_end_to_end(port, shape, X, engines)
     for name, o in e2e.items():
+        o.update(search_costs(port, shape, X, engines[name][1],
+                              engines[name][0]))
         print(f"end to end, {name}: {json.dumps(o)}", flush=True)
     record["end_to_end"] = e2e
+    record["steps_per_sync"] = port["search"].STEPS_PER_SYNC
+    record["steps_per_sync_sweep"] = sweep_steps_per_sync(
+        port, shape, X, {name: engines[name] for name in
+                         ("float32_batched", "float32_single",
+                          "fused_float32")})
+    print(f"K sweep (hop steps a host check): "
+          f"{json.dumps(record['steps_per_sync_sweep'])}", flush=True)
+    record["peak_device_bytes_end_to_end"] = torch.cuda.max_memory_allocated()
     record["profile_batched"] = {
         p: profile_batched(port, shape, X, runs[p]["engines"]["batched"])
         for p in ("float32", "int8", "pq")}
     print(f"profile, one batched search: "
           f"{json.dumps(record['profile_batched'])}", flush=True)
     out_dir = ROOT / "build"  # git-ignored, beside the kernels' builds
+    stamp(record, "end")
     out_dir.mkdir(exist_ok=True)
+    del record["t0"]
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 
     print(f"record: {json.dumps(record)}")

@@ -546,6 +546,8 @@ class WebANNSEngine:
             self.store.cache, k=k_run, ef=ef, metric=cfg.metric,
             eviction=self.store.eviction,
         )
+        # the search's only reads on the host: its result and counters
+        n_db, n_fetch = (int(c) for c in torch.stack([n_db, n_fetch]).cpu())
         ids_np, dists_np = ids.cpu().numpy(), dists.cpu().numpy()
         stats.t_in_mem = time.perf_counter() - t0
         self.store.cache = cache

@@ -16,9 +16,14 @@ Every function works on a batch: each state tensor has a leading query
 axis B. The single-query forms (:func:`seed_state`, :func:`search_phase`,
 :func:`load_phase`) run the batched code at B = 1, so the loop and the
 batched drivers give identical bits (DESIGN.md §5). Where the reference
-vmaps a ``lax.while_loop``, :func:`batch_search_phase` loops while any
-query is active and leaves a finished query's state untouched, counters
-included — what vmap's masking does.
+vmaps a ``lax.while_loop``, a phase is a loop of fixed-shape hop steps
+(:func:`batch_hop_step`) that leaves a finished query's state untouched,
+counters included — what vmap's masking does. So a step taken after
+every query has stopped changes nothing, and the loop checks on the
+host only once every :data:`STEPS_PER_SYNC` steps whether any query is
+still active. On CUDA tensors those steps replay from a CUDA graph
+(:mod:`repro_torch.core.step_graph`); on the CPU the same loop runs
+eagerly (:func:`batch_search_phase_eager`, which also runs on the card).
 
 The kernels of the path carry the work: the distances of every hop and
 of every load phase come from ``ops.gather_distance(_batch)`` over the
@@ -32,23 +37,34 @@ through the merge.
 
 The fused driver (:func:`lazy_knn_search_fused`) runs the same phases
 with the tier-3 payload resident on the device: a load phase reads its
-rows from that payload through the kernels instead of a host fetch.
+rows from that payload through the kernels instead of a host fetch. As
+in the reference's one program, its phase loop is one masked step (a
+hop step, then the phase boundary's gather, tier-2 insert and load
+phase, each masked by "boundary reached"), with its access counters on
+the device: it syncs every :data:`STEPS_PER_SYNC` steps and once a
+search, never once a phase.
 Filters (``banned``) and tombstones come with later slices of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.core import pq, quant
+from repro_torch.core import pq, quant, step_graph
 from repro_torch.core.graph import PAD
 from repro_torch.core.store import CacheState, cache_insert, cache_slots
 from repro_torch.kernels import ops
 
 INF = float("inf")
+
+# hop steps between two host checks of whether a loop goes on: one sync
+# every K steps, at the cost of up to K - 1 steps that change nothing at
+# a loop's end. A step costs the card more than a check costs the host,
+# so K is small (chip_smoke.py sweeps K = 1, 2, 4, 8, 16 on the card)
+STEPS_PER_SYNC = 2
 
 
 @dataclasses.dataclass
@@ -71,7 +87,8 @@ class SearchState:
 
     beam: Beam
     # (..., N + 1) bool; the last column is a spare that masked-out rows
-    # scatter into, so a padded row never writes to a real node
+    # scatter into (their own False), so a padded row never writes to a
+    # real node and the spare stays False
     visited: torch.Tensor
     miss_ids: torch.Tensor  # (..., miss_cap) int32, -1 padded
     miss_count: torch.Tensor  # (...) int64
@@ -82,14 +99,29 @@ class SearchState:
 @dataclasses.dataclass
 class Tier2:
     """Where a search reads resident rows: ``table`` rows, addressed by
-    ``slots(ids) -> (present, slot)``; an int8 ``table`` carries its
-    per-row ``scales``, a uint8 PQ code table the searching queries'
-    lookup tables ``luts``."""
+    :meth:`slots`; an int8 ``table`` carries its per-row ``scales``, a
+    uint8 PQ code table the searching queries' lookup tables ``luts``.
+    With a ``cache`` the rows are its slab, found through its id→slot
+    map; without one the table is the whole corpus."""
 
     table: torch.Tensor  # (R, d) float32 / float16 / int8, or (R, M) uint8
-    slots: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
     scales: Optional[torch.Tensor] = None  # (R,) float32 for int8
     luts: Optional[torch.Tensor] = None  # (B, L, M, 256) float32 for pq
+    cache: Optional[CacheState] = None
+
+    def slots(self, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(present, slot)`` of any-shaped ``ids`` (-1 padded)."""
+        if self.cache is None:
+            return ids >= 0, ids.long().clamp(0, self.table.shape[0] - 1)
+        return cache_slots(self.cache, ids)
+
+    def tensors(self) -> List[torch.Tensor]:
+        """The tensors a search step reads through this tier 2, the
+        queries' ``luts`` aside."""
+        out = [self.table] + ([] if self.scales is None else [self.scales])
+        if self.cache is not None:
+            out += [self.cache.slot_of, self.cache.id_of]
+        return out
 
 
 def cache_tier2(cache: CacheState,
@@ -97,14 +129,12 @@ def cache_tier2(cache: CacheState,
     """Tier 2 as the cache slab: a present id's row is its slot. A pq
     slab is read through ``luts``, the (B, L, M, 256) tables of the
     searching queries (``pq.build_lut``, built once a search)."""
-    return Tier2(cache.slab, lambda ids: cache_slots(cache, ids),
-                 cache.row_scales(), luts)
+    return Tier2(cache.slab, cache.row_scales(), luts, cache)
 
 
 def resident_tier2(vectors: torch.Tensor) -> Tier2:
     """Tier 2 as the whole table (memory-data ratio 100%)."""
-    n = vectors.shape[0]
-    return Tier2(vectors, lambda ids: (ids >= 0, ids.long().clamp(0, n - 1)))
+    return Tier2(vectors)
 
 
 def _distances(
@@ -252,10 +282,109 @@ def batch_seed_state(
     )
     beam = beam_merge(states.beam, entry_ids, dists, usable)
     visited = states.visited.scatter(
-        1, torch.where(valid, entry_ids.long(), n), True
+        1, torch.where(valid, entry_ids.long(), n), valid
     )
     states = dataclasses.replace(states, beam=beam, visited=visited)
     return _push_misses(states, entry_ids, valid & ~present)
+
+
+def batch_hop_step(
+    Q: torch.Tensor,  # (B, d)
+    neighbors_l: torch.Tensor,  # (N, deg) int32, PAD padded
+    s: SearchState,
+    tier2: Tier2,
+    metric: str,
+    trigger: int,
+    max_hops: int = 100000,
+    gate: Optional[torch.Tensor] = None,  # (B,) or () bool
+) -> Tuple[SearchState, torch.Tensor]:
+    """One hop step of Algorithm 1 (lines 6–21) for B queries, at a fixed
+    shape and with no host sync: ``(state, active)``.
+
+    Every still-active query expands its nearest unexplored candidate
+    against tier 2; misses go to L. A query is active while its beam
+    holds an unexplored candidate, ``|L| < trigger`` and it has made
+    fewer than ``max_hops`` hops (and where ``gate`` holds). Every update
+    is masked by ``active``, and a query that stops never becomes active
+    again, so a step after every query has stopped leaves every state
+    tensor as it was (``tests/test_torch_search_loop.py``)."""
+    n = neighbors_l.shape[0]
+    unexplored = (s.beam.ids >= 0) & ~s.beam.explored
+    active = (
+        unexplored.any(-1) & (s.miss_count < trigger)
+        & (s.n_hops < max_hops)
+    )
+    if gate is not None:
+        active = active & gate
+    j = torch.argmin(torch.where(unexplored, s.beam.dists, INF), -1)
+    c = s.beam.ids.gather(1, j[:, None])[:, 0]
+    explored = s.beam.explored.scatter(
+        1, j[:, None],
+        s.beam.explored.gather(1, j[:, None]) | active[:, None],
+    )
+    beam = dataclasses.replace(s.beam, explored=explored)
+    nbrs = neighbors_l[c.long().clamp(0, n - 1)]  # (B, deg)
+    valid = (nbrs != PAD) & active[:, None]
+    safe = torch.where(valid, nbrs, 0).long()
+    fresh = valid & ~s.visited.gather(1, safe)
+    visited = s.visited.scatter(
+        1, torch.where(fresh, nbrs.long(), n), fresh
+    )
+    present, slots = tier2.slots(torch.where(fresh, nbrs, -1))
+    usable = fresh & present
+    dists = _distances(
+        tier2.table, torch.where(usable, slots, -1).to(torch.int32),
+        Q, metric, tier2.scales, tier2.luts,
+    )
+    merged = beam_merge(beam, nbrs, dists, usable)
+    s = dataclasses.replace(
+        s,
+        beam=_where_rows(active, merged, beam),
+        visited=visited,
+        n_hops=s.n_hops + active.long(),
+        n_dist=s.n_dist + usable.long().sum(-1),
+    )
+    return _push_misses(s, nbrs, fresh & ~present), active
+
+
+def _state_tensors(s: SearchState) -> List[torch.Tensor]:
+    return [s.beam.ids, s.beam.dists, s.beam.explored, s.visited,
+            s.miss_ids, s.miss_count, s.n_hops, s.n_dist]
+
+
+def _state_of(ts: List[torch.Tensor]) -> SearchState:
+    return SearchState(Beam(*ts[:3]), *ts[3:8])
+
+
+def _consts(Q: torch.Tensor, luts: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    return [Q] if luts is None else [Q, luts]
+
+
+def _run_loop(step, carry, consts, baked, params, eager: bool):
+    """A step loop, checked on the host every :data:`STEPS_PER_SYNC`
+    steps: replayed from CUDA graphs on the card, eager on the CPU or
+    where ``eager`` asks for it."""
+    if eager or carry[0].device.type != "cuda":
+        return step_graph.run_eager(step, carry, consts, STEPS_PER_SYNC)
+    return step_graph.run_graph(step, carry, consts, baked, params,
+                                STEPS_PER_SYNC)
+
+
+def _phase(Q, neighbors_l, states, tier2, metric, ef_trigger, max_hops,
+           eager: bool) -> SearchState:
+    trigger = states.beam.ef if ef_trigger is None else ef_trigger
+
+    def step(carry, consts):
+        t2 = dataclasses.replace(tier2, luts=consts[1] if len(consts) > 1
+                                 else None)
+        s, active = batch_hop_step(consts[0], neighbors_l, _state_of(carry),
+                                   t2, metric, trigger, max_hops)
+        return _state_tensors(s), active
+
+    return _state_of(_run_loop(
+        step, _state_tensors(states), _consts(Q, tier2.luts),
+        [neighbors_l] + tier2.tensors(), ("hop", metric, trigger, max_hops),
+        eager))
 
 
 def batch_search_phase(
@@ -269,51 +398,32 @@ def batch_search_phase(
 ) -> SearchState:
     """One in-memory phase of Algorithm 1 (lines 6–22) for B queries.
 
-    Each step expands, for every still-active query, its nearest
-    unexplored candidate against tier 2; misses go to L. A query stops
-    when its beam is exhausted or ``|L| >= ef_trigger``; the loop ends
-    when no query is active (one host sync per step).
+    Hop steps (:func:`batch_hop_step`) until no query is active: a query
+    stops when its beam is exhausted or ``|L| >= ef_trigger``. On CUDA
+    tensors the steps replay from a CUDA graph, :data:`STEPS_PER_SYNC` a
+    replay and one host sync a replay; on the CPU this is
+    :func:`batch_search_phase_eager`. Both take the same steps and give
+    the same bits.
     """
-    s = states
-    trigger = s.beam.ef if ef_trigger is None else ef_trigger
-    n = neighbors_l.shape[0]
-    while True:
-        unexplored = (s.beam.ids >= 0) & ~s.beam.explored
-        active = (
-            unexplored.any(-1) & (s.miss_count < trigger)
-            & (s.n_hops < max_hops)
-        )
-        if not bool(active.any()):
-            return s
-        j = torch.argmin(torch.where(unexplored, s.beam.dists, INF), -1)
-        c = s.beam.ids.gather(1, j[:, None])[:, 0]
-        explored = s.beam.explored.scatter(
-            1, j[:, None],
-            s.beam.explored.gather(1, j[:, None]) | active[:, None],
-        )
-        beam = dataclasses.replace(s.beam, explored=explored)
-        nbrs = neighbors_l[c.long().clamp(0, n - 1)]  # (B, deg)
-        valid = (nbrs != PAD) & active[:, None]
-        safe = torch.where(valid, nbrs, 0).long()
-        fresh = valid & ~s.visited.gather(1, safe)
-        visited = s.visited.scatter(
-            1, torch.where(fresh, nbrs.long(), n), True
-        )
-        present, slots = tier2.slots(torch.where(fresh, nbrs, -1))
-        usable = fresh & present
-        dists = _distances(
-            tier2.table, torch.where(usable, slots, -1).to(torch.int32),
-            Q, metric, tier2.scales, tier2.luts,
-        )
-        merged = beam_merge(beam, nbrs, dists, usable)
-        s = dataclasses.replace(
-            s,
-            beam=_where_rows(active, merged, beam),
-            visited=visited,
-            n_hops=s.n_hops + active.long(),
-            n_dist=s.n_dist + usable.long().sum(-1),
-        )
-        s = _push_misses(s, nbrs, fresh & ~present)
+    return _phase(Q, neighbors_l, states, tier2, metric, ef_trigger,
+                  max_hops, eager=False)
+
+
+def batch_search_phase_eager(
+    Q: torch.Tensor,
+    neighbors_l: torch.Tensor,
+    states: SearchState,
+    tier2: Tier2,
+    metric: str,
+    ef_trigger: Optional[int] = None,
+    max_hops: int = 100000,
+) -> SearchState:
+    """:func:`batch_search_phase` with its hop steps called from Python
+    on either device, one host sync every :data:`STEPS_PER_SYNC` steps:
+    the CPU's phase, and on the card the loop a replayed graph is held
+    to."""
+    return _phase(Q, neighbors_l, states, tier2, metric, ef_trigger,
+                  max_hops, eager=True)
 
 
 def batch_load_phase(
@@ -425,6 +535,70 @@ def load_phase(
 # ------------------------------------------------------ fused lazy search
 
 
+def _where_state(m: torch.Tensor, new: SearchState,
+                 old: SearchState) -> SearchState:
+    """Field by field ``new`` where the () bool ``m`` holds, else ``old``
+    (a field the two share is kept as it is)."""
+    return _state_of([a if a is b else torch.where(m, a, b) for a, b in
+                      zip(_state_tensors(new), _state_tensors(old))])
+
+
+def _fused_layer(
+    q, neighbors_l, payload, payload_scales, cache, entry_ids, ef, metric,
+    eviction, max_phases, luts, eager: bool,
+) -> Tuple[SearchState, CacheState, torch.Tensor, torch.Tensor]:
+    n = neighbors_l.shape[0]
+    dev = q.device
+    Q = q[None]
+    miss_cap = ef + neighbors_l.shape[1] + 1
+    state = batch_make_state(1, ef, miss_cap, n, dev)
+    state = batch_seed_state(state, Q, entry_ids[None],
+                             cache_tier2(cache, luts), metric)
+
+    def step(carry, consts):
+        s = _state_of(carry[:8])
+        n_db, n_fetch, phase, done = carry[8:]
+        Qs, lt = consts[0], (consts[1] if len(consts) > 1 else None)
+        s, active = batch_hop_step(Qs, neighbors_l, s, cache_tier2(cache, lt),
+                                   metric, ef, gate=~done)
+        # the phase boundary: no hop this step, and the layer not done
+        boundary = ~active[0] & ~done
+        ids = torch.where(boundary, s.miss_ids[0], -1)  # L, or nothing
+        mc = torch.where(boundary, s.miss_count[0], 0)
+        # ONE bulk load of L from the payload (Alg. 1 line 24)
+        safe = ids.long().clamp(0, n - 1)
+        if payload.dtype == torch.uint8:
+            rows = pq.decode(payload[safe], cache.codebook)
+        else:
+            rows = quant.dequantize(
+                payload[safe],
+                None if payload_scales is None else payload_scales[safe])
+        # the insert runs at every boundary, an empty one too (it moves
+        # the LRU clock, as the reference's does)
+        cache_insert(cache, ids, rows, policy=eviction, enable=boundary)
+        # the miss ids are the payload's rows
+        loaded = batch_load_phase(Qs, s, ids[None], payload, ids[None],
+                                  metric, payload_scales, lt)
+        s = _where_state(boundary, loaded, s)
+        n_db = n_db + (mc > 0).long()
+        n_fetch = n_fetch + mc
+        phase = phase + boundary.long()
+        done = done | (boundary & ((mc == 0) | (phase >= max_phases)))
+        return _state_tensors(s) + [n_db, n_fetch, phase, done], ~done
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    carry = _state_tensors(state) + [zero, zero, zero,
+                                     torch.zeros((), dtype=torch.bool,
+                                                 device=dev)]
+    baked = [neighbors_l, payload, cache.slab, cache.slot_of, cache.id_of,
+             cache.clock, cache.last_used, cache.codebook]
+    baked += [t for t in (payload_scales, cache.row_scales())
+              if t is not None]
+    out = _run_loop(step, carry, _consts(Q, luts), baked,
+                    ("fused", metric, ef, eviction, max_phases), eager)
+    return _first(_state_of(out[:8])), cache, out[8], out[9]
+
+
 def search_layer_lazy_fused(
     q: torch.Tensor,  # (d,) float32
     neighbors_l: torch.Tensor,  # (N, deg) int32, PAD padded
@@ -437,7 +611,7 @@ def search_layer_lazy_fused(
     eviction: int = 0,
     max_phases: int = 256,
     luts: Optional[torch.Tensor] = None,  # (1, L, M, 256): pq search
-) -> Tuple[SearchState, CacheState, int, int]:
+) -> Tuple[SearchState, CacheState, torch.Tensor, torch.Tensor]:
     """One layer of Algorithm 1 with the tier-3 payload on the device
     (the port of ``repro.core.search.search_layer_lazy_fused``).
 
@@ -448,38 +622,45 @@ def search_layer_lazy_fused(
     float16 and int8, ``adc_gather_distance`` over the query's ``luts``
     at pq), and the dequantized (or decoded, through tier 2's frozen
     codebook, the payload's too) rows go into tier 2, which re-encodes a
-    pq row as the reference's insert does. The insert runs after every phase, an empty one too (it moves
-    the LRU clock, as the reference's does), and nothing is touched: the
-    reference's fused program has no LRU touch. Returns ``(state, cache,
-    n_db, n_fetched)``: one access for each phase that missed.
+    pq row as the reference's insert does. The insert runs after every
+    phase, an empty one too (it moves the LRU clock, as the reference's
+    does), and nothing is touched: the reference's fused program has no
+    LRU touch.
+
+    As the reference's ``lax.while_loop`` over phases, the whole loop is
+    one masked step: a hop step while the phase is active, then, at the
+    phase boundary, the payload gather, the tier-2 insert and the load
+    phase, each masked by "boundary reached". On CUDA tensors the steps
+    replay from a CUDA graph with one host sync every
+    :data:`STEPS_PER_SYNC` steps; on the CPU this is
+    :func:`search_layer_lazy_fused_eager`. Returns ``(state, cache, n_db,
+    n_fetched)``, the counts as () int64 device tensors: one access for
+    each phase that missed.
     """
-    n = neighbors_l.shape[0]
-    miss_cap = ef + neighbors_l.shape[1] + 1
-    state = make_state(ef, miss_cap, n, q.device)
-    state = seed_state(state, q, entry_ids, cache_tier2(cache, luts), metric)
-    n_db = n_fetch = 0
-    for _ in range(max_phases):
-        state = search_phase(
-            q, neighbors_l, state, cache_tier2(cache, luts), metric,
-            ef_trigger=ef,
-        )
-        mc = int(state.miss_count)
-        ids = state.miss_ids
-        safe = ids.long().clamp(0, n - 1)
-        if payload.dtype == torch.uint8:
-            rows = pq.decode(payload[safe], cache.codebook)
-        else:
-            scales = None if payload_scales is None else payload_scales[safe]
-            rows = quant.dequantize(payload[safe], scales)
-        cache = cache_insert(cache, ids, rows, policy=eviction)
-        # the miss ids are the payload's rows
-        state = load_phase(q, state, ids, payload, ids, metric,
-                           payload_scales, luts)
-        n_db += int(mc > 0)
-        n_fetch += mc
-        if mc == 0:
-            break
-    return state, cache, n_db, n_fetch
+    return _fused_layer(q, neighbors_l, payload, payload_scales, cache,
+                        entry_ids, ef, metric, eviction, max_phases, luts,
+                        eager=False)
+
+
+def search_layer_lazy_fused_eager(
+    q: torch.Tensor,
+    neighbors_l: torch.Tensor,
+    payload: torch.Tensor,
+    payload_scales: Optional[torch.Tensor],
+    cache: CacheState,
+    entry_ids: torch.Tensor,
+    ef: int,
+    metric: str,
+    eviction: int = 0,
+    max_phases: int = 256,
+    luts: Optional[torch.Tensor] = None,
+) -> Tuple[SearchState, CacheState, torch.Tensor, torch.Tensor]:
+    """:func:`search_layer_lazy_fused` with its steps called from Python
+    on either device: the CPU's layer, and on the card the loop a
+    replayed graph is held to."""
+    return _fused_layer(q, neighbors_l, payload, payload_scales, cache,
+                        entry_ids, ef, metric, eviction, max_phases, luts,
+                        eager=True)
 
 
 def lazy_knn_search_fused(
@@ -493,18 +674,21 @@ def lazy_knn_search_fused(
     ef: int,
     metric: str = "l2",
     eviction: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, int], CacheState]:
+) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
+           CacheState]:
     """Whole lazy KNN query, all layers, on the device-resident payload:
-    ``(dists (k,), ids (k,), (n_db, n_fetched), cache)``. Upper layers
-    descend greedily (ef = 1), as the reference's fused program does. A
+    ``(dists (k,), ids (k,), (n_db, n_fetched), cache)``, the counts as
+    () int64 device tensors. Upper layers descend greedily (ef = 1), as
+    the reference's fused program does, and chain on the device: each
+    layer's entry is the last one's best id, never read on the host. A
     pq payload ((N, M) uint8 codes of tier 2's codebook) is read through
     the query's lookup tables, built once here for the whole search."""
-    n_db = n_fetch = 0
     luts = None
     if payload.dtype == torch.uint8:
         luts = pq.build_lut(q, cache.codebook, metric)[None]
     entry_ids = torch.full((1,), int(entry), dtype=torch.int32,
                            device=q.device)
+    n_db = n_fetch = torch.zeros((), dtype=torch.int64, device=q.device)
     for lc in range(neighbors.shape[0] - 1, 0, -1):
         st, cache, db, fc = search_layer_lazy_fused(
             q, neighbors[lc], payload, payload_scales, cache, entry_ids, 1,

@@ -21,9 +21,11 @@ a host-side :class:`~repro_torch.core.storage.StorageBackend`.
 Differences from the JAX reference (``repro.core.store``), all
 behaviour-preserving:
 
-- the cache ops update the state's tensors in place and return the same
-  object (the slab is the largest tensor of the query path; the
-  reference's functional updates would copy it on every insert);
+- the cache ops update the state's tensors in place, the clock too, and
+  return the same object (the slab is the largest tensor of the query
+  path; the reference's functional updates would copy it on every
+  insert, and a CUDA graph that captured an insert replays it on the
+  same tensors);
 - id batches are not padded to power-of-two buckets (those exist for
   jit shape reuse); the access counters are unchanged by this;
 - :meth:`TieredStore.gather` returns device rows, and
@@ -192,8 +194,32 @@ def cache_touch(cache: CacheState, ids: torch.Tensor) -> CacheState:
         0, torch.where(ok, slots, 0),
         torch.where(ok, tick, 0).to(torch.int32), reduce="amax",
     )
-    cache.clock = tick
+    cache.clock.copy_(tick)
     return cache
+
+
+def _write_plan(idx: torch.Tensor, mask: torch.Tensor):
+    """Rows of a masked write ``dst[idx[r]] = val[r]`` (rows ``r`` where
+    ``mask`` holds) at a fixed shape and with no host sync: ``(src, tgt,
+    some)``. Row ``r`` writes ``val[src[r]]`` to ``tgt[r]``: a masked row
+    its own; every other row repeats the first masked row's write, or,
+    where no row is masked (``some`` false), writes index 0's own value
+    back. So rows that share an index always write the same value, and
+    the order of a duplicate-index write, which CUDA leaves undefined,
+    cannot matter."""
+    # a (1,) index: a 0-dim tensor index would be read on the host
+    first = torch.argmax(mask.to(torch.uint8), dim=0, keepdim=True)
+    rows = torch.arange(mask.shape[0], device=mask.device)
+    src = torch.where(mask, rows, first)
+    some = mask[first]
+    return src, torch.where(some, idx[src], 0), some
+
+
+def _put(dst: torch.Tensor, plan, val: torch.Tensor) -> None:
+    """Carry out a :func:`_write_plan` on ``dst`` in place."""
+    src, tgt, some = plan
+    keep = some.reshape(1, *([1] * (dst.dim() - 1)))
+    dst.index_put_((tgt,), torch.where(keep, val[src], dst[tgt]))
 
 
 def cache_insert(
@@ -201,6 +227,7 @@ def cache_insert(
     ids: torch.Tensor,  # (k,) int32, -1 padded
     vecs: torch.Tensor,  # (k, d) float32
     policy: int = EVICT_FIFO,
+    enable: Optional[torch.Tensor] = None,  # () bool: False makes a no-op
 ) -> CacheState:
     """Insert a fetched batch, evicting per ``policy``; updates ``cache``
     in place and returns it. ``vecs`` arrive float32 and are quantized to
@@ -216,17 +243,27 @@ def cache_insert(
     result never depends on scatter order; an int8 row's scale is written
     through the same winner as its payload. Ids are assumed unique
     within a batch.
+
+    The insert is the reference's drop-mode one at a fixed shape: every
+    row is quantized (or encoded) and every write goes through a mask
+    (:func:`_write_plan`), so it needs no host sync and a CUDA graph can
+    capture it. ``enable`` (a device bool) gates the whole insert, the
+    LRU clock's tick included: the fused driver inserts at every step and
+    enables it at a phase boundary only.
     """
     ids = ids.reshape(-1).to(torch.int32)
     k = ids.shape[0]
     cap = cache.capacity
     dev = cache.slab.device
+    tick = 1 if enable is None else enable.long()
     if k == 0:
         if policy != EVICT_FIFO:
-            cache.clock = cache.clock + 1
+            cache.clock.add_(tick)
         return cache
     present, _ = cache_slots(cache, ids)
     need = (ids >= 0) & ~present
+    if enable is not None:
+        need = need & enable
     offsets = torch.cumsum(need.long(), 0) - 1
     if policy == EVICT_FIFO:
         slots = (cache.clock + torch.where(need, offsets, 0)) % cap
@@ -235,29 +272,29 @@ def cache_insert(
         m = min(k, cap)
         lru_slots = torch.sort(cache.last_used, stable=True).indices[:m]
         slots = lru_slots[offsets.clamp(0, k - 1) % m]
-        new_clock = cache.clock + 1
+        new_clock = cache.clock + tick
     slots = torch.where(need, slots, cap)  # cap = the spare "drop" column
     order = torch.arange(k, device=dev)
     winner = torch.full((cap + 1,), -1, dtype=torch.long, device=dev)
     winner.scatter_reduce_(0, slots, torch.where(need, order, -1), "amax")
-    need = need & (winner[slots] == order)
-    rows = need.nonzero().squeeze(1)  # inserting rows; their slots are unique
-    s = slots[rows]
-    evicted = cache.id_of[s].long()
+    need = need & (winner[slots] == order)  # inserting rows: unique slots
+    slots = slots.clamp(max=cap - 1)
+    evicted = cache.id_of[slots]
     # 1) unmap evicted ids, 2) map the new ones (the reference's order)
-    cache.slot_of[evicted[evicted >= 0]] = -1
-    new_ids = ids[rows]
-    cache.slot_of[new_ids.long()] = s.to(torch.int32)
+    _put(cache.slot_of, _write_plan(evicted.long(), need & (evicted >= 0)),
+         torch.full_like(evicted, -1))
+    _put(cache.slot_of, _write_plan(ids.long(), need), slots.to(torch.int32))
+    plan = _write_plan(slots, need)  # the slot-indexed writes
     if cache.slab.dtype == torch.uint8:
-        cache.slab[s] = pq.encode(vecs[rows], cache.codebook)
+        _put(cache.slab, plan, pq.encode(vecs, cache.codebook))
     else:
-        payload, row_scales = quant.quantize(vecs[rows], cache.precision)
-        cache.slab[s] = payload
+        payload, row_scales = quant.quantize(vecs, cache.precision)
+        _put(cache.slab, plan, payload)
         if cache.slab.dtype == torch.int8:
-            cache.scales[s] = row_scales
-    cache.id_of[s] = new_ids
-    cache.last_used[s] = new_clock.to(torch.int32)
-    cache.clock = new_clock
+            _put(cache.scales, plan, row_scales)
+    _put(cache.id_of, plan, ids)
+    _put(cache.last_used, plan, new_clock.to(torch.int32).expand(k))
+    cache.clock.copy_(new_clock)
     return cache
 
 

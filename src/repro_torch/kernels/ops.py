@@ -171,3 +171,23 @@ def reset_launch_counts() -> None:
             counts[form] = 0
     _dm.launches = 0
     _eb.launches = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name → launches, as :func:`launch_counts`
+    names them) to the counters. A CUDA graph replays launches its
+    capture counted once (``repro_torch.core.step_graph``): it adds them
+    at every replay, and takes back the capture's own count, since a
+    capture runs nothing."""
+    for name, n in counts.items():
+        for mod in (_gd, _dq, _adc, _topk):
+            if name in mod.launches:
+                mod.launches[name] += n
+                break
+        else:
+            if name == "distance_matrix":
+                _dm.launches += n
+            elif name == "embedding_bag":
+                _eb.launches += n
+            else:
+                raise KeyError(f"no launch counter named {name!r}")

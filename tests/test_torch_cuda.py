@@ -21,8 +21,15 @@ scale of its terms: |q|² + |x|² for l2, |q|·|x| for ip, 1 for cos. The top-k 
 The embedding-bag kernel sums each column in slot order with IEEE
 operations, as its plain version does, so it matches exactly; the recsys
 models on the card match their CPU forward to rtol 1e-4, atol 1e-5 (float32
-matmuls and softmaxes that sum in other orders, TF32 off).
+matmuls and softmaxes that sum in other orders, TF32 off). A search
+phase replayed from CUDA graphs (``core/step_graph.py``) must equal the
+same phase's eager loop on the card exactly, launch counts included.
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,8 +38,11 @@ import torch
 from repro_torch import convert
 from repro_torch.core import engine as E
 from repro_torch.core import pq, quant
+from repro_torch.core import search as S
+from repro_torch.core import step_graph
 from repro_torch.core.hnsw import build_hnsw
 from repro_torch.core.storage import InMemoryBackend
+from repro_torch.core.store import ExternalStore, TieredStore
 from repro_torch.kernels import ops, ref
 from repro_torch.core import distributed as D
 from repro_torch.kernels.topk import MAX_CANDIDATES, TOPK_MAX_K
@@ -776,3 +786,190 @@ def test_recsys_forward_on_card_matches_cpu(cuda, arch):
             torch.testing.assert_close(PRS.recsys_loss(card, batch).cpu(),
                                        PRS.recsys_loss(cpu, batch),
                                        rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------- the graph-replayed search loop
+
+LOOP_N, LOOP_D, LOOP_EF = 600, 64, 32
+
+
+def _loop_inputs(precision):
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((LOOP_N, LOOP_D)).astype(np.float32)
+    Q = X[rng.choice(LOOP_N, 32)] + 0.1 * rng.standard_normal(
+        (32, LOOP_D)).astype(np.float32)
+    g = build_hnsw(X, M=8, ef_construction=40, seed=0)
+    codebook = None
+    if precision == "pq":
+        codebook = pq.PQCodebook(
+            rng.standard_normal((8, 256, LOOP_D // 8)).astype(np.float32))
+    return X, Q, g, codebook
+
+
+def _warm_store(X, precision, eviction, codebook, dev):
+    store = TieredStore(ExternalStore(X), capacity=150, device=dev,
+                        precision=precision, eviction=eviction,
+                        codebook=codebook)
+    store.warm(np.arange(0, LOOP_N, 9)[:60])
+    return store
+
+
+def _assert_same_runs(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        elif isinstance(x, dict):
+            assert set(x) == set(y)
+            for name in x:
+                np.testing.assert_array_equal(x[name], y[name], err_msg=name)
+        elif isinstance(x, (list, tuple)):
+            _assert_same_runs(x, y)
+        else:
+            assert x == y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16", "pq"])
+@pytest.mark.parametrize("B", [1, 32])
+def test_graph_replayed_phase_equals_eager_loop(cuda, precision, B):
+    """One layer of the batched host driver (phases, host fetches, load
+    phases) with its phases through ``search.batch_search_phase`` (CUDA
+    graph replays) and through ``search.batch_search_phase_eager``: every
+    state tensor after every phase, tier 2 and the launch counts equal."""
+    X, Q, g, codebook = _loop_inputs(precision)
+    nbrs = torch.from_numpy(np.asarray(g.neighbors, np.int32)).to(cuda)
+    runs = {}
+    for name, phase in (("graph", S.batch_search_phase),
+                        ("eager", S.batch_search_phase_eager)):
+        store = _warm_store(X, precision, "fifo", codebook, cuda)
+        Qt = torch.from_numpy(Q[:B]).to(cuda)
+        luts = (pq.build_lut(Qt, store.cache.codebook, "l2")
+                if precision == "pq" else None)
+        step_graph.reset_stats()
+        ops.reset_launch_counts()
+        states = S.batch_make_state(B, LOOP_EF, LOOP_EF + nbrs.shape[2] + 1,
+                                    LOOP_N, cuda)
+        states = S.batch_seed_state(
+            states, Qt, torch.full((B, 1), g.entry_point, dtype=torch.int32,
+                                   device=cuda),
+            S.cache_tier2(store.cache, luts), "l2")
+        trace = []
+        for _ in range(100):
+            states = phase(Qt, nbrs[0], states,
+                           S.cache_tier2(store.cache, luts), "l2", LOOP_EF)
+            trace.append(S._state_tensors(states))
+            if int(states.miss_count.sum()) == 0:
+                break
+            rows, pos = store.gather_batch(states.miss_ids.cpu().numpy())
+            states = S.batch_load_phase(Qt, states, states.miss_ids, rows,
+                                        pos, "l2")
+        torch.cuda.synchronize()
+        runs[name] = (trace, convert.cache_to_numpy(store.cache),
+                      ops.launch_counts(), dict(step_graph.stats))
+    assert len(runs["graph"][0]) > 2  # several phases, loads between them
+    assert runs["graph"][3]["replays"] > 0 and runs["eager"][3]["replays"] == 0
+    assert runs["graph"][3]["syncs"] == runs["eager"][3]["syncs"]
+    _assert_same_runs(runs["graph"][:3], runs["eager"][:3])
+
+
+def _payload(X, precision, codebook, dev):
+    if precision == "pq":
+        return (torch.from_numpy(pq.encode_np(X, codebook.centroids)).to(dev),
+                None)
+    p, sc = quant.quantize_np(X, precision)
+    return (torch.from_numpy(p).to(dev),
+            torch.from_numpy(sc).to(dev) if p.dtype == np.int8 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eviction", ["fifo", "lru"])
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16", "pq"])
+def test_graph_replayed_fused_layer_equals_eager_loop(cuda, precision,
+                                                      eviction):
+    """The fused driver's layer (its masked step: hop, payload gather,
+    tier-2 insert, load phase) through ``search.search_layer_lazy_fused``
+    (graph replays) and ``search.search_layer_lazy_fused_eager``, four
+    queries on one tier 2 each: state, device counters, tier 2 and launch
+    counts equal."""
+    X, Q, g, codebook = _loop_inputs(precision)
+    nbrs = torch.from_numpy(np.asarray(g.neighbors, np.int32)).to(cuda)
+    payload, scales = _payload(X, precision, codebook, cuda)
+    entry = torch.tensor([g.entry_point], dtype=torch.int32, device=cuda)
+    runs = {}
+    for name, layer in (("graph", S.search_layer_lazy_fused),
+                        ("eager", S.search_layer_lazy_fused_eager)):
+        store = _warm_store(X, precision, eviction, codebook, cuda)
+        cache = store.cache
+        step_graph.reset_stats()
+        ops.reset_launch_counts()
+        out = []
+        for q in torch.from_numpy(Q[:4]).to(cuda):
+            luts = (pq.build_lut(q, cache.codebook, "l2")[None]
+                    if precision == "pq" else None)
+            st, cache, db, fc = layer(q, nbrs[0], payload, scales, cache,
+                                      entry, LOOP_EF, "l2",
+                                      eviction=store.eviction, luts=luts)
+            out.append((S._state_tensors(st), int(db), int(fc),
+                        convert.cache_to_numpy(cache)))
+        runs[name] = (out, ops.launch_counts(), dict(step_graph.stats))
+    assert sum(o[1] for o in runs["graph"][0]) > 1  # phases that missed
+    assert runs["graph"][2]["replays"] > 0 and runs["eager"][2]["replays"] == 0
+    _assert_same_runs(runs["graph"][:2], runs["eager"][:2])
+
+
+@pytest.mark.cuda
+def test_capture_is_not_reused_after_resize_cache(cuda):
+    """A warm engine's second search replays its captures and captures
+    nothing; after ``resize_cache`` (new tier-2 tensors) the search
+    captures anew and returns what a fresh engine's first search does."""
+    X, Q, g, _ = _loop_inputs("float32")
+    cfg = E.EngineConfig(cache_capacity=150, device="cuda")
+    eng = E.WebANNSEngine(X, g, cfg)
+    request = E.SearchRequest(query=Q, k=10, ef=LOOP_EF)
+    eng.search(request)
+    step_graph.reset_stats()
+    eng.search(request)
+    assert step_graph.stats["captures"] == 0
+    assert step_graph.stats["replays"] > 0
+    eng.resize_cache(150)
+    got = eng.search(request)
+    assert step_graph.stats["captures"] > 0
+    want = E.WebANNSEngine(X, g, cfg).search(request)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.dists, want.dists)
+    assert got.batch_stats.n_db == want.batch_stats.n_db
+
+
+FAILED_CAPTURE = """
+import torch
+from repro_torch.core import step_graph
+
+def step(carry, consts):
+    (x,) = carry
+    if bool(x.sum() > 1e9):  # a host sync: a graph cannot capture it
+        x = x * 2
+    return [x + 1], x < 10
+
+x = torch.zeros(4, device="cuda")
+try:
+    step_graph.run_graph(step, [x], [], [], ("sync",), 2)
+except RuntimeError:
+    print("raised")
+else:
+    print("fell back")
+"""
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda):
+    """A step that syncs cannot be captured: ``run_graph`` raises, and
+    does not fall back to the eager loop (in its own process, as a
+    failed capture may leave the CUDA context unusable)."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run(
+        [sys.executable, "-c", FAILED_CAPTURE], capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": src})
+    assert out.stdout.strip().splitlines()[-1:] == ["raised"], (
+        out.stdout + out.stderr)
