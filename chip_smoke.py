@@ -23,7 +23,14 @@ the script exits non-zero:
    rows, rows with fewer than k finite, retrieval's (1, 1,000,000)); and
    the embedding bag exactly (sum and mean, with and without weights,
    float32/float16/bfloat16 tables, d in {1, 3, 64, 768}, S in {1, 32},
-   B in {1, 512}, ids at and above V, all-padding bags, int64 ids);
+   B in {1, 512}, ids at and above V, all-padding bags, int64 ids); and
+   the hop-step kernel B.8 on mid-search states over a 10,000 x 768
+   table, at float32, int8 and float16, l2/ip/cos, B in {1, 32}, layer
+   0's shape (ef 64, degree 32, a cached tier 2) and an upper layer's
+   (ef 1, degree 16, the whole table), with and without a gate: equal
+   to the per-op step on the card (``torch.equal``, all nine tensors)
+   and to the plain version on the CPU (the beams within the gather
+   kernels' tolerance, up to near ties; the rest exactly);
 4. the query paths, on one N = 10,000, d = 768 corpus and one HNSW graph
    at the paper's widths (M = 16, ef_construction = 200), each on fresh
    engines on the card with a cold 25% tier 2 and its launch counts set
@@ -76,6 +83,9 @@ the script exits non-zero:
    plain versions at this shape (the top-k exactly, its tree merging
    977 tiles' survivors in two levels);
 5. times: each kernel, its plain version and its bound (CUDA events;
+   B.8 beside the per-op step at float32, int8 and float16, B in {1,
+   32}, layer 0 and an upper layer, and the device kernels of one
+   replayed hop step through each, from torch.profiler;
    the merge also at the beam merge's rows, the top-k also at
    retrieval's shape, each beside ``torch.topk``; the distance matrix at
    the flat scan's and retrieval's shapes beside ``torch.matmul``),
@@ -222,7 +232,7 @@ def kernel_names(sources) -> frozenset:
 
 # the sources whose kernels the latest slice redesigned: the run prints
 # their registers and spills from the build's own ptxas report
-PTXAS_SOURCES = ("distance_matrix", "adc_gather_distance")
+PTXAS_SOURCES = ("hop_step", "distance_matrix", "adc_gather_distance")
 
 
 def ptxas_report(logs: dict) -> dict:
@@ -662,6 +672,215 @@ def check_embedding_bag_kernel(port, dev, rng) -> dict:
           and torch.equal(got[0], table[49] + table[3]),
           "embedding_bag: int64 ids past 2^31 read row V - 1")
     return {"embedding_bag": 0.0, "embedding_bag_cases": n + 1}
+
+
+# ------------------------------------------ phase 3: the hop step (B.8)
+
+
+def hop_neighbors(rng, n: int, deg: int) -> np.ndarray:
+    """(n, deg) int32 neighbour rows as a graph layer holds them: distinct
+    ids of other nodes, a random tail of each row PAD (-1), a tenth of
+    the rows empty."""
+    rows = np.full((n, deg), -1, np.int32)
+    for i in range(n):
+        k = deg if rng.random() < 0.5 else int(rng.integers(0, deg + 1))
+        if rng.random() < 0.1:
+            k = 0
+        pick = rng.choice(n - 1, k, replace=False)
+        rows[i, :k] = pick + (pick >= i)
+    return rows
+
+
+def _np_dist(X: np.ndarray, q: np.ndarray, metric: str) -> np.ndarray:
+    if metric == "l2":
+        return ((X - q) ** 2).sum(-1)
+    ip = X @ q
+    if metric == "ip":
+        return -ip
+    return -ip / ((np.linalg.norm(X, axis=-1) + 1e-30)
+                  * (np.linalg.norm(q) + 1e-30))
+
+
+def hop_state(S, rng, X: np.ndarray, Q: np.ndarray, nbrs: np.ndarray,
+              ef: int, miss_cap: int, trigger: int, max_hops: int,
+              metric: str, dev):
+    """A state of ``len(Q)`` queries in the middle of a layer search, for
+    one hop step: each beam a sorted run of ids of nodes with neighbours,
+    at their distances to the query, padding after it, some explored;
+    ``visited`` holding the beam, the misses and a tenth of the other
+    nodes (the spare column False); a miss list, hop and distance counts.
+    About a tenth of the queries are inactive: beam all explored, ``|L|``
+    at the trigger, or (where ``max_hops`` is small) the hop cap reached."""
+    n = nbrs.shape[0]
+    B = Q.shape[0]
+    live = np.flatnonzero((nbrs != -1).any(1))
+    ids = np.full((B, ef), -1, np.int32)
+    dists = np.full((B, ef), np.inf, np.float32)
+    explored = np.zeros((B, ef), bool)
+    visited = rng.random((B, n + 1)) < 0.1
+    visited[:, n] = False
+    miss_ids = np.full((B, miss_cap), -1, np.int32)
+    miss_count = np.zeros(B, np.int64)
+    n_hops = rng.integers(0, 40, B).astype(np.int64)
+    for b in range(B):
+        k = int(rng.integers(1, min(ef, len(live)) + 1))
+        pick = rng.choice(live, k, replace=False)
+        dist = _np_dist(X[pick], Q[b], metric).astype(np.float32)
+        order = np.argsort(dist, kind="stable")
+        ids[b, :k], dists[b, :k] = pick[order], dist[order]
+        if rng.random() < 0.1:
+            explored[b, :k] = True
+        else:
+            explored[b, :k] = rng.random(k) < 0.5
+            explored[b, rng.integers(0, k)] = False
+        visited[b, pick] = True
+        m = int(rng.integers(0, min(trigger, miss_cap)))
+        if rng.random() < 0.1:
+            m = min(trigger, miss_cap)
+        free = np.flatnonzero(~visited[b, :n])
+        missed = rng.choice(free, min(m, len(free)), replace=False)
+        miss_ids[b, :len(missed)] = missed
+        miss_count[b] = len(missed)
+        visited[b, missed] = True
+        if max_hops < 1_000 and rng.random() < 0.1:
+            n_hops[b] = max_hops
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return S.SearchState(
+        beam=S.Beam(t(ids), t(dists), t(explored)), visited=t(visited),
+        miss_ids=t(miss_ids), miss_count=t(miss_count), n_hops=t(n_hops),
+        n_dist=t(rng.integers(0, 400, B).astype(np.int64)))
+
+
+def hop_tier2(port, X: np.ndarray, precision: str, cached: bool, rng,
+              capacity: int, dev):
+    """Tier 2 for a hop step: a tier-2 cache of ``capacity`` rows of X at
+    ``precision``, filled with random rows, or (not ``cached``) the
+    whole table at that precision."""
+    S = port["search"]
+    if cached:
+        st = port["store"]
+        store = st.TieredStore(st.ExternalStore(X), capacity=capacity,
+                               device=dev, precision=precision)
+        store.warm(rng.choice(X.shape[0], capacity, replace=False))
+        return S.cache_tier2(store.cache)
+    if precision == "float32":
+        return S.resident_tier2(torch.as_tensor(X, device=dev))
+    payload, sc = port["quant"].quantize_np(X, precision)
+    return S.Tier2(torch.as_tensor(payload, device=dev),
+                   torch.as_tensor(sc, device=dev)
+                   if precision == "int8" else None)
+
+
+def tier2_to(port, tier2, dev):
+    """A copy of ``tier2`` (and its cache) on ``dev``."""
+    to = (lambda t: None if t is None else t.to(dev))  # noqa: E731
+    cache = tier2.cache
+    if cache is not None:
+        cache = dataclasses.replace(
+            cache, **{f.name: to(getattr(cache, f.name))
+                      for f in dataclasses.fields(cache)})
+    return port["search"].Tier2(to(tier2.table), to(tier2.scales),
+                                to(tier2.luts), cache)
+
+
+def hop_step_args(S, state, active):
+    """A step's state and ``active`` as the list of its nine tensors."""
+    return S._state_tensors(state) + [active]
+
+
+def same_up_to_ties(got, want, rtol: float, atol: float) -> tuple:
+    """Two steps' beams, one from the kernel and one from the plain
+    version, whose distances differ by rounding: each row's (id,
+    explored) entries equal as sets, their distances within the
+    tolerance, and any entry in one row only a near tie of the row's
+    last kept distance. Returns (ok, largest distance error)."""
+    g_ids, g_d, g_e = (t.cpu().numpy() for t in got)
+    w_ids, w_d, w_e = (t.cpu().numpy() for t in want)
+    err = 0.0
+    for b in range(g_ids.shape[0]):
+        g = {i: (d, e) for i, d, e in zip(g_ids[b], g_d[b], g_e[b]) if i >= 0}
+        w = {i: (d, e) for i, d, e in zip(w_ids[b], w_d[b], w_e[b]) if i >= 0}
+        for i in g.keys() & w.keys():
+            (dg, eg), (dw, ew) = g[i], w[i]
+            err = max(err, abs(float(dg) - float(dw)))
+            if eg != ew or abs(dg - dw) > atol + rtol * abs(dw):
+                return False, err
+        cut = max([d for d, _ in w.values()], default=0.0)
+        for i in g.keys() ^ w.keys():
+            d = (g.get(i) or w.get(i))[0]
+            if abs(d - cut) > 2 * (atol + rtol * abs(cut)):
+                return False, err
+    return True, err
+
+
+HOP_METRICS = ("l2", "ip", "cos")
+
+
+def check_hop_step_kernel(port, shape: Shape, dev, rng) -> dict:
+    """B.8 against the per-op step on the card (``torch.equal`` on all
+    nine output tensors) and against the plain version on the CPU (the
+    integer and bool tensors exactly, the beams up to near ties within
+    the gather kernels' tolerance), at float32, int8 and float16 and l2,
+    ip and cos, at B = 1 and 32, on layer 0's shape (ef 64, degree 32,
+    a cached tier 2) and an upper layer's (ef 1, degree 16, the whole
+    table), the fused driver's () gate and a (B,) gate."""
+    S, ops = port["search"], port["ops"]
+    cpu = torch.device("cpu")
+    X = rng.standard_normal((shape.n, shape.dim)).astype(np.float32)
+    Qall = make_queries(X, shape.batch, seed=11)
+    shapes = {"layer0": (shape.ef, shape.degree, True),
+              "upper": (1, shape.degree // 2, False)}
+    nbrs = {name: hop_neighbors(rng, shape.n, deg)
+            for name, (_, deg, _) in shapes.items()}
+    err, n_cases, n_active = 0.0, 0, 0
+    for precision in PRECISIONS:
+        for name, (ef, deg, cached) in shapes.items():
+            tier2 = hop_tier2(port, X, precision, cached, rng, shape.cache,
+                              dev)
+            tier2_cpu = tier2_to(port, tier2, cpu)
+            N = torch.as_tensor(nbrs[name], device=dev)
+            miss_cap = ef + deg + 1
+            for metric in HOP_METRICS:
+                for B in (1, shape.batch):
+                    Q = Qall[:B]
+                    st = hop_state(S, rng, X, Q, nbrs[name], ef, miss_cap,
+                                   ef, 100_000, metric, dev)
+                    Qt = torch.as_tensor(Q, device=dev)
+                    gate = (torch.tensor(True, device=dev) if B == 1 else
+                            torch.as_tensor(rng.random(B) < 0.8, device=dev))
+                    for g in (None, gate):
+                        what = f"hop_step {precision} {name} {metric} B={B}"
+                        before = ops.launch_counts()["hop_step"]
+                        s1, a1 = S.batch_hop_step(Qt, N, st, tier2, metric,
+                                                  ef, gate=g)
+                        s2, a2 = S.batch_hop_step_plain(Qt, N, st, tier2,
+                                                        metric, ef, gate=g)
+                        torch.cuda.synchronize()
+                        check(ops.launch_counts()["hop_step"] == before + 1,
+                              f"{what}: one launch of the kernel")
+                        got, want = hop_step_args(S, s1, a1), hop_step_args(
+                            S, s2, a2)
+                        check(all(x.dtype == y.dtype and torch.equal(x, y)
+                                  for x, y in zip(got, want)),
+                              f"{what}: = the per-op step (torch.equal)")
+                        n_active += int(a1.sum())
+                        s3, a3 = S.batch_hop_step_plain(
+                            Qt.cpu(), N.cpu(), S._state_of(
+                                [t.cpu() for t in S._state_tensors(st)]),
+                            tier2_cpu, metric, ef,
+                            gate=None if g is None else g.cpu())
+                        plain = hop_step_args(S, s3, a3)
+                        check(all(torch.equal(x.cpu(), y) for x, y in
+                                  zip(got[3:], plain[3:])),
+                              f"{what}: visited, L, counters, active = plain")
+                        ok, e = same_up_to_ties(got[:3], plain[:3], GD_RTOL,
+                                                GD_ATOL)
+                        check(ok, f"{what}: beam = plain up to near ties")
+                        err = max(err, e)
+                        n_cases += 1
+    check(n_active >= n_cases,
+          f"hop_step: {n_active} active queries over {n_cases} cases")
+    return {"hop_step": err, "hop_step_cases": n_cases}
 
 
 # ------------------------------------------------------------ phase 4
@@ -1695,6 +1914,183 @@ def time_dequant_kernels(port, shape: Shape, dev, rng, launches,
     return rows
 
 
+# hop-step timing: calls of one step on one state, captured in a graph
+HOP_TIMED_CALLS = 100
+
+
+def hop_work(Q, nbrs, state, tier2, out, active) -> tuple:
+    """(bytes, operations) one hop step must move and do on these inputs:
+    each input read and each output written once (the visited rows, the
+    beam, L, the counters, ``active``, the queries), and for the active
+    queries their neighbour rows, a slot_of and an id_of entry a fresh
+    neighbour (with a cache) and each distinct usable tier-2 row once;
+    l2's sub, mul and add per element of every usable row."""
+    B, W = state.visited.shape
+    ef, cap, d = state.beam.ef, state.miss_ids.shape[1], Q.shape[1]
+    n_bytes = (2 * B * W + 2 * B * ef * 9 + 2 * B * cap * 4 + 2 * 3 * 8 * B
+               + B + B * d * 4 + int(active.sum()) * nbrs.shape[1] * 4)
+    fresh = (out.visited & ~state.visited).nonzero()[:, 1].to(torch.int32)
+    present, slots = tier2.slots(fresh)
+    table = tier2.table
+    row_bytes = table.shape[1] * table.element_size() + (
+        4 if tier2.scales is not None else 0)
+    n_bytes += int(torch.unique(slots[present]).numel()) * row_bytes
+    if tier2.cache is not None:
+        n_bytes += 8 * int(fresh.numel())
+    n_use = int((out.n_dist - state.n_dist).sum())
+    return n_bytes, 3 * d * n_use
+
+
+def time_hop_step(port, shape: Shape, X, graph, dev, rng, launches,
+                  err) -> dict:
+    """B.8 beside the per-op step it replaces (its plain version on the
+    card: B.1 or B.3 and B.2 around PyTorch ops), device time a call from
+    HOP_TIMED_CALLS calls on one state captured in a CUDA graph: at
+    float32, int8 and float16 over a full 2,500-row tier 2 of the corpus,
+    at B = 32 and 1, on layer 0 (ef 64, its 32-wide rows) and an upper
+    layer (ef 1, layer 1's rows cut to their 16 real columns), each with
+    its bound from this state's own work. The row's ``ms``, ``plain_ms``
+    and bound are float32 layer 0 at B = 32. Then the device kernels of
+    one replayed hop step (``replayed_step_kernels``)."""
+    S = port["search"]
+    nbrs = np.asarray(graph.neighbors, np.int32)
+    check(bool((nbrs[1, :, 16:] == -1).all()),
+          "upper-layer rows hold at most 16 neighbours")
+    layers = {"layer0": (shape.ef, nbrs[0]),
+              "upper": (1, np.ascontiguousarray(nbrs[1, :, :16]))}
+    Qn = make_queries(X, shape.batch, seed=21)
+    shapes = {}
+    for precision in PRECISIONS:
+        tier2 = hop_tier2(port, X, precision, True, rng, shape.cache, dev)
+        for name, (ef, rows) in layers.items():
+            N_ = torch.as_tensor(rows, device=dev)
+            for B in (shape.batch, 1):
+                Qt = torch.as_tensor(Qn[:B], device=dev)
+                for _ in range(20):  # a single query that is active
+                    st = hop_state(S, rng, X, Qn[:B], rows, ef,
+                                   ef + rows.shape[1] + 1, ef, 100_000, "l2",
+                                   dev)
+                    out, active = S.batch_hop_step(Qt, N_, st, tier2, "l2",
+                                                   ef)
+                    if bool(active.any()):
+                        break
+                t, by = bound_ms(*hop_work(Qt, N_, st, tier2, out, active))
+                shapes[f"{precision}_{name}_B{B}"] = dict(
+                    ef=ef, degree=int(rows.shape[1]),
+                    active=int(active.sum()),
+                    usable=int((out.n_dist - st.n_dist).sum()),
+                    ms=device_ms([lambda: S.batch_hop_step(
+                        Qt, N_, st, tier2, "l2", ef)] * HOP_TIMED_CALLS),
+                    per_op_ms=device_ms([lambda: S.batch_hop_step_plain(
+                        Qt, N_, st, tier2, "l2", ef)] * HOP_TIMED_CALLS),
+                    bound_ms=t, bound_by=by)
+    main = shapes[f"float32_layer0_B{shape.batch}"]
+    return dict(
+        name="hop_step", route="cuda",
+        source="src/repro_torch/csrc/hop_step.cu",
+        replaces=("src/repro/core/search.py:240 (no TPU kernel: the "
+                  "reference's hop step, a lax.while_loop body that XLA "
+                  "fuses)"),
+        launches=launches["hop_step"], max_abs_err=err["hop_step"],
+        ms=main["ms"], plain_ms=main["per_op_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, shapes=shapes,
+        replayed_step_kernels=replayed_step_kernels(port, shape, X, graph,
+                                                    dev, rng))
+
+
+# CUgraphNodeType (cuda.h)
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record", 10: "mem_alloc", 11: "mem_free",
+                    13: "conditional"}
+
+
+def graph_nodes(g) -> dict:
+    """Nodes of a captured CUDA graph (kept: ``keep_graph=True``) by kind,
+    read from the graph itself (libcuda's cuGraphGetNodes and
+    cuGraphNodeGetType)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes")
+    counts, kind = {}, ctypes.c_int(0)
+    for node in nodes:
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType")
+        name = GRAPH_NODE_KINDS.get(kind.value, str(kind.value))
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def replayed_step_kernels(port, shape: Shape, X, graph, dev, rng) -> dict:
+    """The device work of one replayed hop step, through B.8 and through
+    the per-op step: K = STEPS_PER_SYNC steps of layer 0 at B = 32
+    captured as ``step_graph`` captures a phase's steps (a warm-up block,
+    K unrolled steps, the carry copied back), counted two ways: the
+    graph's own nodes by kind (``graph_nodes``), and one replay under
+    torch.profiler (its device kernels and copies); each over K, at
+    float32, int8 and float16."""
+    from torch.profiler import ProfilerActivity, profile
+
+    S, sg = port["search"], port["step_graph"]
+    K = S.STEPS_PER_SYNC
+    nbrs0 = torch.as_tensor(np.asarray(graph.neighbors[0], np.int32),
+                            device=dev)
+    Qn = make_queries(X, shape.batch, seed=22)
+    Qt = torch.as_tensor(Qn, device=dev)
+    out = {}
+    for precision in PRECISIONS:
+        tier2 = hop_tier2(port, X, precision, True, rng, shape.cache, dev)
+        st = hop_state(S, rng, X, Qn, graph.neighbors[0], shape.ef,
+                       shape.miss_cap, shape.ef, 100_000, "l2", dev)
+        rec = {}
+        for route, fn in (("hop_step", S.batch_hop_step),
+                          ("per_op", S.batch_hop_step_plain)):
+            def step(carry, consts, fn=fn):
+                s, active = fn(consts[0], nbrs0, S._state_of(carry), tier2,
+                               "l2", shape.ef)
+                return S._state_tensors(s), active
+
+            carry, _ = sg._warm(step, S._state_tensors(st), [Qt], K)
+            s_carry = [torch.empty_like(t) for t in carry]
+            s_Q = torch.empty_like(Qt)
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(g):
+                new, more = sg._block(step, s_carry, [s_Q], K)
+                for dst, src in zip(s_carry, new):
+                    dst.copy_(src)
+            g.instantiate()
+            nodes = graph_nodes(g)
+            for _ in range(2):  # a warm replay, then the profiled one
+                for dst, src in zip(s_carry + [s_Q], carry + [Qt]):
+                    dst.copy_(src)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    g.replay()
+                    torch.cuda.synchronize()
+            names = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA]
+            copies = [n for n in names if n.startswith(("Memcpy", "Memset"))]
+            rec[route] = dict(
+                graph_kernels_per_step=nodes.get("kernel", 0) / K,
+                graph_nodes=nodes,
+                profiled_kernels_per_step=(len(names) - len(copies)) / K,
+                profiled_copies_per_replay=len(copies), steps_per_replay=K,
+                profiled_kernel_names=sorted(set(names) - set(copies))[:12])
+            del g
+        out[precision] = rec
+    return out
+
+
 # ADC timing: each call draws its tables and ids afresh, so its tables
 # come from HBM as the bound assumes: 100 batched calls read 630 MB of
 # tables; the single form's tables are 192 KiB, so it takes 600 calls
@@ -2209,10 +2605,13 @@ def main() -> int:
     stamp(record, "kernels_vs_plain")
     rng = np.random.default_rng(0)
     err = check_kernels(port, shape, dev, rng)
+    err.update(check_hop_step_kernel(port, shape, dev, rng))
     err.update(check_flat_kernels(port, dev, rng))
     err.update(check_embedding_bag_kernel(port, dev, rng))
     print(f"kernels vs plain: max abs err {err} (gather rtol {GD_RTOL}, "
-          f"atol {GD_ATOL}; distance_matrix within {DM_TOL} of the "
+          f"atol {GD_ATOL}, hop_step's beams too, up to near ties; "
+          f"hop_step = the per-op step exactly; "
+          f"distance_matrix within {DM_TOL} of the "
           f"metric's scale, largest {err['distance_matrix_scaled']}; merge, "
           "ADC, topk and embedding_bag exact)", flush=True)
 
@@ -2233,7 +2632,8 @@ def main() -> int:
     # float32: each path below sets the counts to 0 just before it and
     # reads them just after; `launches` sums those readings per kernel
     run = run_query_path(port, shape, "cuda", X, graph, Q)
-    for kname in ("gather_distance", "gather_distance_batch", "merge_topk"):
+    for kname in ("gather_distance", "gather_distance_batch", "merge_topk",
+                  "hop_step"):
         n = run["launches_total"][kname]
         check(n > 0, f"kernel {kname} launched on the query path ({n})")
     record["query_path"] = check_query_path(port, shape, X, Q, run)
@@ -2352,6 +2752,9 @@ def main() -> int:
     stamp(record, "times")
     rows = time_kernels(port, shape, dev, rng, launches, err)
     rows += time_dequant_kernels(port, shape, dev, rng, launches, err)
+    rows.append(time_hop_step(port, shape, X, graph, dev, rng, launches,
+                              err))
+    print(f"hop step: {json.dumps(rows[-1])}", flush=True)
     rows += time_adc_kernels(port, shape, dev, rng, launches, err)
     rows += time_flat_kernels(port, shape, sub["shard"], sub["X"],
                               rec.pop("retrieval_D"),

@@ -33,7 +33,10 @@ fetched rows during a load) — or from ``ops.dequant_gather_distance
 from ``ops.adc_gather_distance(_batch)`` over the per-query lookup tables
 where they are PQ codes (DESIGN.md §12) — and the beam merge is
 ``ops.merge_topk``, whose ``src`` output carries the ``explored`` flags
-through the merge.
+through the merge. On the card a hop step over a float32, int8 or
+float16 tier 2 is one launch of the hop-step kernel B.8
+(``ops.hop_step``), which holds the same distance stage and merge and
+gives the bits of those ops (:func:`batch_hop_step_plain`).
 
 The fused driver (:func:`lazy_knn_search_fused`) runs the same phases
 with the tier-3 payload resident on the device: a load phase reads its
@@ -307,7 +310,42 @@ def batch_hop_step(
     fewer than ``max_hops`` hops (and where ``gate`` holds). Every update
     is masked by ``active``, and a query that stops never becomes active
     again, so a step after every query has stopped leaves every state
-    tensor as it was (``tests/test_torch_search_loop.py``)."""
+    tensor as it was (``tests/test_torch_search_loop.py``).
+
+    Where ``ops.hop_step_takes`` (a CUDA float32, int8 or float16 tier 2
+    and ``ef + deg`` ≤ 256) the step is one launch of the hop-step kernel
+    B.8, which gives the bits of :func:`batch_hop_step_plain`; everywhere
+    else (the CPU, a pq tier 2, wider rows) it is
+    :func:`batch_hop_step_plain`. The rule looks at device, dtype and
+    shapes only, before any launch."""
+    if not ops.hop_step_takes(tier2.table, s.beam.ef, neighbors_l.shape[1]):
+        return batch_hop_step_plain(Q, neighbors_l, s, tier2, metric,
+                                    trigger, max_hops, gate)
+    cache = tier2.cache
+    # L comes out of _push_misses as a view of a wider tensor
+    out = ops.hop_step(
+        Q, neighbors_l, *(t.contiguous() for t in _state_tensors(s)),
+        tier2.table, tier2.scales,
+        None if cache is None else cache.slot_of,
+        None if cache is None else cache.id_of, metric, trigger, max_hops,
+        gate)
+    return _state_of(list(out[:8])), out[8]
+
+
+def batch_hop_step_plain(
+    Q: torch.Tensor,  # (B, d)
+    neighbors_l: torch.Tensor,  # (N, deg) int32, PAD padded
+    s: SearchState,
+    tier2: Tier2,
+    metric: str,
+    trigger: int,
+    max_hops: int = 100000,
+    gate: Optional[torch.Tensor] = None,  # (B,) or () bool
+) -> Tuple[SearchState, torch.Tensor]:
+    """:func:`batch_hop_step` as PyTorch ops around the distance and merge
+    kernels, on either device: the CPU's step (the ops' plain versions),
+    and on the card the per-op step of hand-written kernels (B.1, B.3 or
+    B.4, then B.2) that the hop-step kernel B.8 is held to bit for bit."""
     n = neighbors_l.shape[0]
     unexplored = (s.beam.ids >= 0) & ~s.beam.explored
     active = (

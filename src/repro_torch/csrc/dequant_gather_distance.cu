@@ -28,59 +28,26 @@
 // row width and both base addresses allow it, and element by element
 // otherwise; the dequantized values live only in registers, so no float32
 // copy of the table or of the gathered rows is made; float32 sums of x.q
-// (or (x-q)^2), x.x and q.q meet in a shuffle tree.
+// (or (x-q)^2), x.x and q.q meet in a shuffle tree. The row's distance
+// is row_distance.cuh's, shared with B.1 and the hop step B.8.
 
 #include <cstdint>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "row_distance.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
 
-enum Metric { kL2 = 0, kIp = 1, kCos = 2 };
-enum Elem { kInt8 = 0, kHalf = 1 };
-
-template <int METRIC>
-__device__ __forceinline__ void accumulate(float x, float q, float& acc,
-                                           float& xx, float& qq) {
-  if (METRIC == kL2) {
-    const float diff = x - q;
-    acc += diff * diff;
-  } else {
-    acc += x * q;
-    if (METRIC == kCos) {
-      xx += x * x;
-      qq += q * q;
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
-}
-
-// storage type and widening of each element kind; float16 rows are read
-// as their raw 16 bits, so the 16-byte union below holds only plain types
-template <int ELEM>
-struct Elt;
-template <>
-struct Elt<kInt8> {
-  using S = int8_t;
-  static __device__ __forceinline__ float widen(S v) {
-    return static_cast<float>(v);
-  }
-};
-template <>
-struct Elt<kHalf> {
-  using S = unsigned short;
-  static __device__ __forceinline__ float widen(S v) {
-    return __half2float(__ushort_as_half(v));
-  }
-};
+using rowdist::Elt;
+using rowdist::kCos;
+using rowdist::kHalf;
+using rowdist::kInt8;
+using rowdist::kIp;
+using rowdist::kL2;
 
 template <int METRIC, int ELEM>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -89,8 +56,6 @@ dequant_gather_distance_kernel(
     const float* __restrict__ scales, int n_rows, int d,
     const int* __restrict__ ids, const float* __restrict__ Q, int B, int K,
     float* __restrict__ out, bool vec) {
-  using S = typename Elt<ELEM>::S;
-  constexpr int kE = 16 / static_cast<int>(sizeof(S));
   const long long w =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -102,57 +67,11 @@ dequant_gather_distance_kernel(
     return;
   }
   const int row = id < n_rows ? id : n_rows - 1;
-  float s = 1.0f;
-  if (scales != nullptr) {
-    s = lane == 0 ? __ldg(scales + row) : 0.0f;
-    s = __shfl_sync(kFullMask, s, 0);
-  }
-  const S* x = table + static_cast<size_t>(row) * d;
-  const float* q = Q + static_cast<size_t>(b) * d;
-  float acc = 0.f, xx = 0.f, qq = 0.f;
-  if (vec) {
-    const int4* x16 = reinterpret_cast<const int4*>(x);
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    const int chunks = d / kE;
-    for (int j = lane; j < chunks; j += 32) {
-      union {
-        int4 raw;
-        S e[kE];
-      } u;
-      u.raw = __ldg(x16 + j);
-#pragma unroll
-      for (int h = 0; h < kE / 4; ++h) {
-        const float4 c = __ldg(q4 + j * (kE / 4) + h);
-        const float qv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float xv = __fmul_rn(Elt<ELEM>::widen(u.e[4 * h + t]), s);
-          accumulate<METRIC>(xv, qv[t], acc, xx, qq);
-        }
-      }
-    }
-  } else {
-    for (int j = lane; j < d; j += 32) {
-      const float xv = __fmul_rn(Elt<ELEM>::widen(x[j]), s);
-      accumulate<METRIC>(xv, __ldg(q + j), acc, xx, qq);
-    }
-  }
-  acc = warp_sum(acc);
-  if (METRIC == kCos) {
-    xx = warp_sum(xx);
-    qq = warp_sum(qq);
-  }
-  if (lane == 0) {
-    float dist;
-    if (METRIC == kL2) {
-      dist = acc;
-    } else if (METRIC == kIp) {
-      dist = -acc;
-    } else {
-      dist = -acc / ((sqrtf(xx) + 1e-30f) * (sqrtf(qq) + 1e-30f));
-    }
-    out[w] = dist;
-  }
+  const float s = rowdist::row_scale(scales, row, lane);
+  const float dist = rowdist::dequant_row<METRIC, ELEM>(
+      table + static_cast<size_t>(row) * d, s,
+      Q + static_cast<size_t>(b) * d, d, vec, lane);
+  if (lane == 0) out[w] = dist;
 }
 
 template <int ELEM>
@@ -165,9 +84,8 @@ int launch(const void* table_raw, const float* scales, int n_rows, int d,
   // 16-byte loads need every row and every query row to start on a
   // 16-byte boundary: the row width in bytes a multiple of 16 and both
   // bases aligned
-  const bool vec = (d % (16 / static_cast<int>(sizeof(S))) == 0) &&
-                   (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(Q) % 16 == 0);
+  const bool vec =
+      rowdist::vec_loads(table, Q, d, static_cast<int>(sizeof(S)));
   const dim3 grid(
       static_cast<unsigned>((n_out + kWarpsPerBlock - 1) / kWarpsPerBlock));
   const dim3 block(kWarpsPerBlock * 32);

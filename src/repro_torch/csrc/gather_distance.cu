@@ -22,38 +22,22 @@
 // warp instruction); the row never returns to device memory; a shuffle
 // tree reduces the 32 partial sums. cos accumulates x.q, x.x and q.q in
 // the same pass and divides in-kernel, where the TPU wrapper normalised
-// the whole table on every call.
+// the whole table on every call. The row's distance is
+// row_distance.cuh's, shared with B.3 and the hop step B.8.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "row_distance.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
 
-enum Metric { kL2 = 0, kIp = 1, kCos = 2 };
-
-template <int METRIC>
-__device__ __forceinline__ void accumulate(float x, float q, float& acc,
-                                           float& xx, float& qq) {
-  if (METRIC == kL2) {
-    const float diff = x - q;
-    acc += diff * diff;
-  } else {
-    acc += x * q;
-    if (METRIC == kCos) {
-      xx += x * x;
-      qq += q * q;
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
-}
+using rowdist::kCos;
+using rowdist::kIp;
+using rowdist::kL2;
 
 template <int METRIC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -72,42 +56,10 @@ gather_distance_kernel(const float* __restrict__ table, int n_rows, int d,
     return;
   }
   const int row = id < n_rows ? id : n_rows - 1;
-  const float* x = table + static_cast<size_t>(row) * d;
-  const float* q = Q + static_cast<size_t>(b) * d;
-  float acc = 0.f, xx = 0.f, qq = 0.f;
-  if (vec4) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    const int d4 = d >> 2;
-    for (int j = lane; j < d4; j += 32) {
-      const float4 a = __ldg(x4 + j);
-      const float4 c = __ldg(q4 + j);
-      accumulate<METRIC>(a.x, c.x, acc, xx, qq);
-      accumulate<METRIC>(a.y, c.y, acc, xx, qq);
-      accumulate<METRIC>(a.z, c.z, acc, xx, qq);
-      accumulate<METRIC>(a.w, c.w, acc, xx, qq);
-    }
-  } else {
-    for (int j = lane; j < d; j += 32) {
-      accumulate<METRIC>(__ldg(x + j), __ldg(q + j), acc, xx, qq);
-    }
-  }
-  acc = warp_sum(acc);
-  if (METRIC == kCos) {
-    xx = warp_sum(xx);
-    qq = warp_sum(qq);
-  }
-  if (lane == 0) {
-    float dist;
-    if (METRIC == kL2) {
-      dist = acc;
-    } else if (METRIC == kIp) {
-      dist = -acc;
-    } else {
-      dist = -acc / ((sqrtf(xx) + 1e-30f) * (sqrtf(qq) + 1e-30f));
-    }
-    out[w] = dist;
-  }
+  const float dist = rowdist::f32_row<METRIC>(
+      table + static_cast<size_t>(row) * d, Q + static_cast<size_t>(b) * d,
+      d, vec4, lane);
+  if (lane == 0) out[w] = dist;
 }
 
 }  // namespace
@@ -121,9 +73,7 @@ extern "C" int gather_distance_f32(const float* table, int n_rows, int d,
   const long long n_out = static_cast<long long>(B) * K;
   if (n_out == 0) return 0;
   if (n_rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec4 = (d % 4 == 0) &&
-                    (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
-                    (reinterpret_cast<uintptr_t>(Q) % 16 == 0);
+  const bool vec4 = rowdist::vec_loads(table, Q, d, 4);
   const dim3 grid(
       static_cast<unsigned>((n_out + kWarpsPerBlock - 1) / kWarpsPerBlock));
   const dim3 block(kWarpsPerBlock * 32);

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own into a shared library under ``build/kernels/`` at the repository
-root, named by a hash of its source and flags so an edited source never
+root, named by a hash of its source, the shared headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header never
 loads a stale build. All missing libraries are compiled at once, one
 ``nvcc`` process per source, and loaded with :mod:`ctypes`; each build's
 compiler output, with ptxas's registers and spills of every kernel, is
@@ -52,10 +53,14 @@ def _nvcc() -> str:
 
 
 def _library_path(src: Path) -> Path:
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    """The library of ``src``, named by a hash of its bytes, of every
+    header (``*.cuh``) beside it (a source may include any of them) and
+    of the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

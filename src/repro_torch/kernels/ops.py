@@ -3,7 +3,9 @@
 A CUDA tensor launches the hand-written kernel, and a failed launch
 raises. A CPU tensor runs the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`. There is no fallback from one to the
-other: the device of the inputs alone decides.
+other: the device of the inputs alone decides. The hop-step kernel B.8
+is the exception that shapes decide too (:func:`hop_step_takes`); its
+plain version is ``search.batch_hop_step_plain``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from repro_torch.kernels import dequant_gather_distance as _dq
 from repro_torch.kernels import distance as _dm
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import gather_distance as _gd
+from repro_torch.kernels import hop_step as _hs
 from repro_torch.kernels import ref
 from repro_torch.kernels import topk as _topk
 
@@ -157,16 +160,47 @@ def embedding_bag(
     return ref.embedding_bag_ref(table, idx, weights, combiner)
 
 
+def hop_step_takes(table: torch.Tensor, ef: int, deg: int) -> bool:
+    """Whether a hop step over the tier-2 ``table`` runs as the hop-step
+    kernel B.8: a CUDA table of float32, int8 or float16, and a merge row
+    ``ef + deg`` of at most ``hop_step.MAX_ROW`` (256). Decided from the
+    device, dtype and shapes alone, before any launch. Otherwise the step
+    is ``search.batch_hop_step_plain``: on the CPU the plain version, on
+    the card the per-op step of hand-written kernels (a pq tier 2, wider
+    rows)."""
+    return (_on_cuda(table) and table.dtype in _hs.ELEM_CODES
+            and ef + deg <= _hs.MAX_ROW)
+
+
+def hop_step(
+    Q: torch.Tensor, neighbors: torch.Tensor, beam_ids: torch.Tensor,
+    beam_dists: torch.Tensor, explored: torch.Tensor, visited: torch.Tensor,
+    miss_ids: torch.Tensor, miss_count: torch.Tensor, n_hops: torch.Tensor,
+    n_dist: torch.Tensor, table: torch.Tensor,
+    scales: Optional[torch.Tensor], slot_of: Optional[torch.Tensor],
+    id_of: Optional[torch.Tensor], metric: str, trigger: int, max_hops: int,
+    gate: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """One hop step of B queries as the kernel B.8, for a step that
+    :func:`hop_step_takes`: the eight new state tensors and ``active``.
+    A failed build or launch raises."""
+    return _hs.hop_step_cuda(Q, neighbors, beam_ids, beam_dists, explored,
+                             visited, miss_ids, miss_count, n_hops, n_dist,
+                             table, scales, slot_of, id_of, metric, trigger,
+                             max_hops, gate)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {**_gd.launches, **_dq.launches, **_adc.launches,
-            **_topk.launches, "distance_matrix": _dm.launches,
+            **_topk.launches, **_hs.launches,
+            "distance_matrix": _dm.launches,
             "embedding_bag": _eb.launches}
 
 
 def reset_launch_counts() -> None:
     for counts in (_gd.launches, _dq.launches, _adc.launches,
-                   _topk.launches):
+                   _topk.launches, _hs.launches):
         for form in counts:
             counts[form] = 0
     _dm.launches = 0
@@ -180,7 +214,7 @@ def add_launch_counts(counts: Dict[str, int]) -> None:
     at every replay, and takes back the capture's own count, since a
     capture runs nothing."""
     for name, n in counts.items():
-        for mod in (_gd, _dq, _adc, _topk):
+        for mod in (_gd, _dq, _adc, _topk, _hs):
             if name in mod.launches:
                 mod.launches[name] += n
                 break

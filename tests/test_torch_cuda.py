@@ -23,7 +23,10 @@ operations, as its plain version does, so it matches exactly; the recsys
 models on the card match their CPU forward to rtol 1e-4, atol 1e-5 (float32
 matmuls and softmaxes that sum in other orders, TF32 off). A search
 phase replayed from CUDA graphs (``core/step_graph.py``) must equal the
-same phase's eager loop on the card exactly, launch counts included.
+same phase's eager loop on the card exactly, launch counts included. The
+hop-step kernel B.8 must equal the per-op step it replaces (B.1 or B.3
+and B.2 around PyTorch ops) exactly: it runs their distance stage and
+merge from the same headers.
 """
 
 import os
@@ -40,6 +43,7 @@ from repro_torch.core import engine as E
 from repro_torch.core import pq, quant
 from repro_torch.core import search as S
 from repro_torch.core import step_graph
+from repro_torch.core import store as PS
 from repro_torch.core.hnsw import build_hnsw
 from repro_torch.core.storage import InMemoryBackend
 from repro_torch.core.store import ExternalStore, TieredStore
@@ -50,6 +54,9 @@ from repro_torch.launch import mesh as PM
 from repro_torch import configs as PC
 from repro_torch.data.synthetic import click_batches
 from repro_torch.models import recsys as PRS
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (the hop step's states and tier 2s)
 
 METRICS = ["l2", "ip", "cos"]
 
@@ -829,14 +836,12 @@ def _assert_same_runs(a, b):
             assert x == y
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["float32", "int8", "float16", "pq"])
-@pytest.mark.parametrize("B", [1, 32])
-def test_graph_replayed_phase_equals_eager_loop(cuda, precision, B):
+def _phase_runs(cuda, precision, B):
     """One layer of the batched host driver (phases, host fetches, load
     phases) with its phases through ``search.batch_search_phase`` (CUDA
-    graph replays) and through ``search.batch_search_phase_eager``: every
-    state tensor after every phase, tier 2 and the launch counts equal."""
+    graph replays) and through ``search.batch_search_phase_eager``: per
+    side the state tensors after every phase, tier 2, the launch counts
+    and the loop's stats."""
     X, Q, g, codebook = _loop_inputs(precision)
     nbrs = torch.from_numpy(np.asarray(g.neighbors, np.int32)).to(cuda)
     runs = {}
@@ -867,10 +872,41 @@ def test_graph_replayed_phase_equals_eager_loop(cuda, precision, B):
         torch.cuda.synchronize()
         runs[name] = (trace, convert.cache_to_numpy(store.cache),
                       ops.launch_counts(), dict(step_graph.stats))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16", "pq"])
+@pytest.mark.parametrize("B", [1, 32])
+def test_graph_replayed_phase_equals_eager_loop(cuda, precision, B):
+    """One layer of the batched host driver (phases, host fetches, load
+    phases) with its phases through ``search.batch_search_phase`` (CUDA
+    graph replays) and through ``search.batch_search_phase_eager``: every
+    state tensor after every phase, tier 2 and the launch counts equal."""
+    runs = _phase_runs(cuda, precision, B)
     assert len(runs["graph"][0]) > 2  # several phases, loads between them
     assert runs["graph"][3]["replays"] > 0 and runs["eager"][3]["replays"] == 0
     assert runs["graph"][3]["syncs"] == runs["eager"][3]["syncs"]
     _assert_same_runs(runs["graph"][:3], runs["eager"][:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16", "pq"])
+@pytest.mark.parametrize("B", [1, 32])
+def test_graph_replayed_phase_launches_the_hop_step_kernel(cuda, precision,
+                                                           B):
+    """The same layer: its hop steps are B.8 launches at float32, int8
+    and float16 (and none at pq, whose steps keep the per-op kernels),
+    as many replayed as eager, the states equal."""
+    runs = _phase_runs(cuda, precision, B)
+    graph, eager = runs["graph"][2], runs["eager"][2]
+    assert graph == eager
+    if precision == "pq":
+        assert graph["hop_step"] == 0 and graph["adc_gather_distance" + (
+            "" if B == 1 else "_batch")] > 0
+    else:
+        assert graph["hop_step"] > 0
+    _assert_same_runs(runs["graph"][:2], runs["eager"][:2])
 
 
 def _payload(X, precision, codebook, dev):
@@ -882,16 +918,12 @@ def _payload(X, precision, codebook, dev):
             torch.from_numpy(sc).to(dev) if p.dtype == np.int8 else None)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("eviction", ["fifo", "lru"])
-@pytest.mark.parametrize("precision", ["float32", "int8", "float16", "pq"])
-def test_graph_replayed_fused_layer_equals_eager_loop(cuda, precision,
-                                                      eviction):
+def _fused_runs(cuda, precision, eviction):
     """The fused driver's layer (its masked step: hop, payload gather,
     tier-2 insert, load phase) through ``search.search_layer_lazy_fused``
     (graph replays) and ``search.search_layer_lazy_fused_eager``, four
-    queries on one tier 2 each: state, device counters, tier 2 and launch
-    counts equal."""
+    queries on one tier 2 each: per side the states, device counters and
+    tier 2 after each query, the launch counts and the loop's stats."""
     X, Q, g, codebook = _loop_inputs(precision)
     nbrs = torch.from_numpy(np.asarray(g.neighbors, np.int32)).to(cuda)
     payload, scales = _payload(X, precision, codebook, cuda)
@@ -913,8 +945,33 @@ def test_graph_replayed_fused_layer_equals_eager_loop(cuda, precision,
             out.append((S._state_tensors(st), int(db), int(fc),
                         convert.cache_to_numpy(cache)))
         runs[name] = (out, ops.launch_counts(), dict(step_graph.stats))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eviction", ["fifo", "lru"])
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16", "pq"])
+def test_graph_replayed_fused_layer_equals_eager_loop(cuda, precision,
+                                                      eviction):
+    """The fused driver's layer (its masked step: hop, payload gather,
+    tier-2 insert, load phase) through ``search.search_layer_lazy_fused``
+    (graph replays) and ``search.search_layer_lazy_fused_eager``, four
+    queries on one tier 2 each: state, device counters, tier 2 and launch
+    counts equal."""
+    runs = _fused_runs(cuda, precision, eviction)
     assert sum(o[1] for o in runs["graph"][0]) > 1  # phases that missed
     assert runs["graph"][2]["replays"] > 0 and runs["eager"][2]["replays"] == 0
+    _assert_same_runs(runs["graph"][:2], runs["eager"][:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16"])
+def test_graph_replayed_fused_layer_launches_the_hop_step_kernel(cuda,
+                                                                 precision):
+    """The fused driver's masked step launches B.8 (its gate the () bool
+    "not done"), as many times replayed as eager."""
+    runs = _fused_runs(cuda, precision, "fifo")
+    assert runs["graph"][1]["hop_step"] == runs["eager"][1]["hop_step"] > 0
     _assert_same_runs(runs["graph"][:2], runs["eager"][:2])
 
 
@@ -973,3 +1030,119 @@ def test_a_failed_capture_raises(cuda):
         env={**os.environ, "PYTHONPATH": src})
     assert out.stdout.strip().splitlines()[-1:] == ["raised"], (
         out.stdout + out.stderr)
+
+
+# ------------------------------------------------ the hop-step kernel (B.8)
+
+HOP_N, HOP_D = 600, 64
+HOP_PORT = {"search": S, "store": PS, "quant": quant}
+
+
+@pytest.fixture(scope="module")
+def hop_data():
+    """Corpus, queries, neighbour rows and tier 2s on the card (or a
+    skip, decided when a test runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    out = {}
+    for d in (HOP_D, 30):  # 16-byte loads, element loads
+        X = rng.standard_normal((HOP_N, d)).astype(np.float32)
+        tier2 = {(p, c): cs.hop_tier2(HOP_PORT, X, p, c, rng, HOP_N // 3, dev)
+                 for p in ("float32", "int8", "float16")
+                 for c in (False, True)}
+        out[d] = (X, cs.make_queries(X, 32, seed=4),
+                  {deg: cs.hop_neighbors(rng, HOP_N, deg)
+                   for deg in (16, 32, 128, 192)}, tier2)
+    return out
+
+
+def _hop_pair(hop_data, d, precision, metric, B, gate, ef, deg, cached,
+              seed):
+    """B.8 and the per-op step on one random mid-search state: the two
+    steps' nine tensors, and B.8's launches in between."""
+    X, Qn, nbrs_np, tier2s = hop_data[d]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    state = cs.hop_state(S, rng, X, Qn[:B], nbrs_np[deg], ef, ef + deg + 1,
+                         ef, 100_000, metric, dev)
+    g = None
+    if gate:
+        g = (torch.tensor(True, device=dev) if B == 1 else
+             torch.from_numpy(rng.random(B) < 0.7).to(dev))
+    Q = torch.from_numpy(Qn[:B]).to(dev)
+    nbrs = torch.from_numpy(nbrs_np[deg]).to(dev)
+    tier2 = tier2s[(precision, cached)]
+    before = ops.launch_counts()["hop_step"]
+    got = S.batch_hop_step(Q, nbrs, state, tier2, metric, ef, gate=g)
+    n = ops.launch_counts()["hop_step"] - before
+    want = S.batch_hop_step_plain(Q, nbrs, state, tier2, metric, ef, gate=g)
+    torch.cuda.synchronize()
+    return cs.hop_step_args(S, *got), cs.hop_step_args(S, *want), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cached", [False, True])
+@pytest.mark.parametrize("deg", [16, 32])
+@pytest.mark.parametrize("ef", [1, 10, 64])
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16"])
+def test_hop_step_kernel_equals_per_op_step(hop_data, precision, metric, B,
+                                            gate, ef, deg, cached):
+    """B.8 against the per-op step (B.1 or B.3, then B.2, around PyTorch
+    ops) on the same state: every output tensor equal (torch.equal)."""
+    got, want, n = _hop_pair(hop_data, HOP_D, precision, metric, B, gate,
+                             ef, deg, cached, ef * 100 + deg)
+    assert n == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(30, 10, 32), (HOP_D, 64, 192),
+                                   (HOP_D, 128, 128)])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16"])
+def test_hop_step_kernel_at_other_widths(hop_data, precision, metric, shape):
+    """Element loads (d = 30) and merge rows of 256 (the largest the
+    kernel takes, its widest warp sort) and of neighbour rows wider than
+    a warp: still the per-op step's bits."""
+    d, ef, deg = shape
+    got, want, n = _hop_pair(hop_data, d, precision, metric, 32, True, ef,
+                             deg, True, 5)
+    assert n == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_hop_step_wrapper_rejects_what_the_kernel_does_not_take(hop_data):
+    from repro_torch.kernels import hop_step as HS
+
+    X, Qn, nbrs_np, tier2s = hop_data[HOP_D]
+    dev = torch.device("cuda")
+    state = cs.hop_state(S, np.random.default_rng(0), X, Qn[:4],
+                         nbrs_np[32], 8, 41, 8, 100_000, "l2", dev)
+    Q = torch.from_numpy(Qn[:4]).to(dev)
+    nbrs = torch.from_numpy(nbrs_np[32]).to(dev)
+    t2 = tier2s[("int8", True)]
+    args = [Q, nbrs, *S._state_tensors(state)]
+    maps = [t2.cache.slot_of, t2.cache.id_of]
+    HS.hop_step_cuda(*args, t2.table, t2.scales, *maps, "l2", 8, 100)
+    with pytest.raises(ValueError, match="scales"):
+        HS.hop_step_cuda(*args, t2.table, None, *maps, "l2", 8, 100)
+    with pytest.raises(ValueError, match="float32, int8 or float16"):
+        HS.hop_step_cuda(*args, t2.table.view(torch.uint8), None, *maps,
+                         "l2", 8, 100)
+    bad = list(args)
+    bad[5] = bad[5][:, :-1].contiguous()  # visited without its spare column
+    with pytest.raises(ValueError, match="visited"):
+        HS.hop_step_cuda(*bad, t2.table, t2.scales, *maps, "l2", 8, 100)
+    with pytest.raises(ValueError, match="gate"):
+        HS.hop_step_cuda(*args, t2.table, t2.scales, *maps, "l2", 8, 100,
+                         torch.ones(3, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match="unknown metric"):
+        HS.hop_step_cuda(*args, t2.table, t2.scales, *maps, "dot", 8, 100)

@@ -55,7 +55,7 @@ def test_every_kernel_source_has_its_wrapper():
     stems = {p.stem for p in _build.sources()}
     assert stems == {"gather_distance", "merge_topk",
                      "dequant_gather_distance", "adc_gather_distance",
-                     "distance_matrix", "topk", "embedding_bag"}
+                     "distance_matrix", "topk", "embedding_bag", "hop_step"}
     wrappers = {p.stem for p in (PACKAGE / "kernels").glob("*.py")}
     assert stems - {"merge_topk", "distance_matrix"} <= wrappers
     assert {"topk", "distance"} <= wrappers

@@ -371,7 +371,7 @@ def test_ops_run_plain_versions_on_cpu_tensors():
         "gather_distance": 0, "gather_distance_batch": 0,
         "dequant_gather_distance": 0, "dequant_gather_distance_batch": 0,
         "adc_gather_distance": 0, "adc_gather_distance_batch": 0,
-        "merge_topk": 0, "topk": 0, "distance_matrix": 0,
+        "merge_topk": 0, "topk": 0, "hop_step": 0, "distance_matrix": 0,
         "embedding_bag": 0}
 
 
