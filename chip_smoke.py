@@ -63,6 +63,28 @@ the script exits non-zero:
    int8, float16 and pq, from one partly warm tier 2, with
    ``torch.equal`` on every state tensor after every phase, tier 2, the
    fused counters and every kernel's launches equal;
+   then cache sizing and the baseline (phase 4e), on the same corpus
+   and graph, 8 probe queries, with the launch counts set to 0 just
+   before it and read just after: (a) Algorithm 2
+   (``cache_opt.optimize_memory_size``, p = 0.8, T_θ = 0.1 s) on a
+   float32 card engine from C0 = N, its ``query_test(C)`` resizing and
+   warming tier 2, serving one untimed search (the new slab's step loops
+   are captured there) and then the timed probes; checked for n_db <= θ
+   at every accepted step, c_best < C0, at least 2 steps, no capture in
+   any timed probe set, live captures bounded over the ladder, and the
+   probes' ids and ``n_db`` at c_best equal to a CPU engine's; p50/p99
+   of 32 single queries at C0 and at c_best; (b) the byte-budgeted form
+   (``optimize_memory_bytes``) at int8 and pq, C0 from the budget; (c)
+   ``RollbackManager`` over (a)'s ladder: one ``n_db`` past θ steps back
+   a rung, the next search captures anew and equals the CPU engine's at
+   that size; (d) ``allocate_memory_bytes`` over a float32 and an int8
+   tenant in the contended regime, every allocation within [floor,
+   optimum] and the total within the usable budget; (e) MeMemo (the
+   port's ``MememoEngine``, host numpy, prefetch 64) against the card
+   engine in ``webanns`` and ``webanns-base`` mode at a 25% tier 2:
+   accesses, items fetched, redundancy, recall@10 and p50/p99 of 8
+   queries after a warm one, MeMemo's redundancy above 0.5 and
+   WebANNS's 0, WebANNS's accesses below MeMemo's;
    then the distributed substrate at world size 1 over NCCL: the flat
    scan (``distributed_brute_force``, k = 10, l2) over the paper's own
    480,000 x 768 corpus, checked for recall@10 >= 0.999 against brute
@@ -109,6 +131,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -209,6 +232,7 @@ def load_port():
     from repro_torch import configs
     from repro_torch.data.synthetic import click_batches
     from repro_torch.models import embeddings, recsys
+    from repro_torch.core import cache_opt, mememo
 
     return dict(
         engine=engine, brute_force_topk=brute_force_topk,
@@ -219,6 +243,7 @@ def load_port():
         distributed=distributed, mesh=mesh, topk_max_k=TOPK_MAX_K,
         configs=configs, click_batches=click_batches, embeddings=embeddings,
         recsys=recsys, search=search, step_graph=step_graph, store=store,
+        cache_opt=cache_opt, mememo=mememo,
     )
 
 
@@ -1346,6 +1371,306 @@ def sweep_steps_per_sync(port, shape: Shape, X, engines: dict,
             out[name][str(K)] = dict(_latency(a["lat"]),
                                      loop_checks_per_search=a["checks"] / n,
                                      replays_per_search=a["replays"] / n)
+    return out
+
+
+# ----------------------------------------------------------- phase 4e
+
+# Algorithm 2 (paper §3.4) at the paper's parameters, over probe queries
+# drawn as phase 4 draws its queries; t_db is one 64-item tier-3 access,
+# as benchmarks/bench_cacheopt.py sets it
+SIZING_P, SIZING_T_THETA = 0.8, 0.1
+SIZING_PROBES = 8
+SIZING_LATENCY_QUERIES = 32
+SIZING_SEED, SIZING_LATENCY_SEED = 17, 19
+T_DB_ITEMS = 64
+# the byte budgets of (b): int8 gets the bytes of 2,500 float32 rows, pq
+# the bytes of the whole corpus's codes (N x M), so both capacities stay
+# within N (the reference does not cap C0 at the corpus)
+SIZING_INT8_ROWS_F32 = 2_500
+# (d): the two tenants' budget is 0.9 x the bytes of the whole corpus at
+# int8, so the allocator's probe runs start both tenants from a capacity
+# the budget caps (float32's at ~20% of N, int8's at ~80%), and its runs
+# are cut to 3 steps: each tenant's optimum then stays within a few
+# secant steps of its capped C0, and the two optima together pass the
+# usable budget (the contended regime) whatever the clock gives θ
+TENANT_BUDGET_FRAC = 0.9
+TENANT_MAX_ITERS = 3
+# (e): MeMemo's prefetch a miss (tests/test_mememo_baseline.py)
+MEMEMO_PREFETCH = 64
+
+
+def sized_searches(port, shape: Shape, eng, capacity: int, warm_q,
+                   queries) -> dict:
+    """Resize ``eng``'s tier 2 to ``capacity`` and warm it, serve
+    ``warm_q`` untimed (the first search on a new slab captures its step
+    loops, so the captures fall here), then each of ``queries``: their
+    results, their host latencies (s) and the step-loop captures they
+    made (0 once the loops are captured)."""
+    E, sg = port["engine"], port["step_graph"]
+    eng.resize_cache(capacity, warm=True)
+    eng.search(E.SearchRequest(query=warm_q, k=shape.k))
+    c0 = sg.stats["captures"]
+    res, lat = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        res.append(eng.search(E.SearchRequest(query=q, k=shape.k)))
+        lat.append(time.perf_counter() - t0)
+    return dict(results=res, lat=lat, captures=sg.stats["captures"] - c0)
+
+
+def sizing_query_test(port, shape: Shape, eng, warm_q, probes, log: list):
+    """Algorithm 2's ``query_test(C)`` on ``eng`` (as
+    benchmarks/bench_cacheopt.py's): the mean ``n_db``, ``n_q`` (items
+    visited) and ``T_query`` of the probes at ``C``, and ``t_db`` of one
+    64-item access. Each call appends its C, counts, timed captures,
+    live captures and per-probe ids and ``n_db`` to ``log``."""
+    co, sg = port["cache_opt"], port["step_graph"]
+
+    def query_test(capacity: int):
+        run = sized_searches(port, shape, eng, capacity, warm_q, probes)
+        stats = [r.stats for r in run["results"]]
+        out = co.QueryTestStats(
+            n_db=float(np.mean([s.n_db for s in stats])),
+            n_q=float(np.mean([s.n_visited for s in stats])),
+            t_query=float(np.mean([s.t_query for s in stats])),
+            t_db=eng.external.access_cost(T_DB_ITEMS))
+        log.append(dict(
+            c=int(capacity), n_db=out.n_db, n_q=out.n_q,
+            t_query_ms=out.t_query * 1e3, captures_timed=run["captures"],
+            captures_alive=sg.n_captures(),
+            ids=[r.ids.tolist() for r in run["results"]],
+            n_db_each=[s.n_db for s in stats]))
+        return out
+
+    return query_test
+
+
+def ladder_record(res, log: list) -> dict:
+    """A CacheOptResult and its query_test log as one record, with the
+    checks every ladder must pass: n_db <= θ at every accepted step, no
+    capture inside a timed probe set, the live captures bounded (none
+    more after any step than after the first: each resize's captures are
+    dropped once its slab is gone)."""
+    check([s.c for s in res.steps] == [e["c"] for e in log],
+          "one query_test a step, in the ladder's order")
+    steps = []
+    for s, entry in zip(res.steps, log):
+        if s.accepted:
+            check(s.stats.n_db <= s.theta,
+                  f"accepted C={s.c}: n_db {s.stats.n_db} <= θ {s.theta}")
+        check(entry["captures_timed"] == 0,
+              f"C={s.c}: no capture inside the timed probes "
+              f"({entry['captures_timed']})")
+        steps.append(dict(c=s.c, theta=s.theta, accepted=s.accepted,
+                          n_db=entry["n_db"], n_q=entry["n_q"],
+                          t_query_ms=entry["t_query_ms"],
+                          captures_timed=entry["captures_timed"],
+                          captures_alive=entry["captures_alive"]))
+    alive = [e["captures_alive"] for e in log]
+    check(max(alive) <= alive[0],
+          f"live captures bounded over the ladder: {alive}")
+    return dict(c0=res.c0, c_best=res.c_best,
+                saved_fraction=res.saved_fraction(),
+                bytes_per_item=res.bytes_per_item,
+                c_best_bytes=res.c_best_bytes, n_steps=len(res.steps),
+                steps=steps)
+
+
+def run_cache_sizing(port, shape: Shape, X, graph, codebook) -> dict:
+    """Phase 4e: the paper's cache-size optimizer and its baseline against
+    the port's engine on the card, at phase 4's corpus and graph.
+
+    (a) Algorithm 2 at float32 from C0 = N; (b) its byte-budgeted form
+    at int8 and pq; (c) ``RollbackManager`` over (a)'s ladder; (d) the
+    cross-tenant allocator over a float32 and an int8 tenant, below the
+    sum of their optima; (e) MeMemo (host numpy) against the card engine
+    in ``webanns`` and ``webanns-base`` mode at a 25% cache. Any failed
+    check raises. Returns the record."""
+    E, co, quant = port["engine"], port["cache_opt"], port["quant"]
+    sg = port["step_graph"]
+    queries = make_queries(X, SIZING_PROBES + 1, seed=SIZING_SEED)
+    warm_q, probes = queries[0], queries[1:]
+    lat_q = make_queries(X, SIZING_LATENCY_QUERIES, seed=SIZING_LATENCY_SEED)
+
+    def engine(device="cuda", precision="float32", **kw):
+        source, extra = X, {}
+        if precision == "pq":
+            source = port["InMemoryBackend"](X)
+            source.codebook = codebook
+            extra = dict(pq_subspaces=codebook.n_subspaces,
+                         rerank_alpha=PQ_ALPHA)
+        return E.WebANNSEngine(source, graph, E.EngineConfig(
+            cache_capacity=shape.cache, ef_search=shape.ef, device=device,
+            precision=precision, **extra, **kw))
+
+    out = {}
+    # (a) Algorithm 2 at float32 from a full tier 2
+    t0 = time.perf_counter()
+    f32 = engine()
+    log_a: list = []
+    res_a = co.optimize_memory_size(
+        sizing_query_test(port, shape, f32, warm_q, probes, log_a),
+        c0=shape.n, p=SIZING_P, t_theta=SIZING_T_THETA)
+    rec = ladder_record(res_a, log_a)
+    check(res_a.c_best < shape.n,
+          f"c_best {res_a.c_best} < C0 {shape.n}: a warm full tier 2 "
+          "needs no access")
+    check(len(res_a.steps) >= 2, f"at least 2 steps ({len(res_a.steps)})")
+    at_best = [e for e in log_a if e["c"] == res_a.c_best][0]
+    cpu = engine(device="cpu")
+    cpu_run = sized_searches(port, shape, cpu, res_a.c_best, warm_q, probes)
+    cpu_ids = [r.ids.tolist() for r in cpu_run["results"]]
+    cpu_n_db = [r.stats.n_db for r in cpu_run["results"]]
+    check(cpu_ids == at_best["ids"],
+          "at c_best every probe's ids on the card equal the CPU engine's")
+    check(cpu_n_db == at_best["n_db_each"],
+          f"at c_best every probe's n_db on the card ({at_best['n_db_each']})"
+          f" equals the CPU engine's ({cpu_n_db})")
+    for name, cap in (("c0", shape.n), ("c_best", res_a.c_best)):
+        run = sized_searches(port, shape, f32, cap, warm_q, lat_q)
+        check(run["captures"] == 0, f"no capture in the timed {name} run")
+        rec[f"latency_at_{name}"] = dict(
+            _latency(run["lat"]),
+            n_db_per_query=float(np.mean([r.stats.n_db
+                                          for r in run["results"]])))
+    rec["n_db_at_c_best_cpu"] = cpu_n_db
+    rec["s"] = time.perf_counter() - t0
+    out["float32"] = rec
+    # (b) the byte-budgeted Algorithm 2 at int8 and pq
+    budgets = {"int8": SIZING_INT8_ROWS_F32 * quant.bytes_per_vector(
+        shape.dim, "float32"), "pq": shape.n * PQ_SUBSPACES}
+    tenants = {"float32": (f32, res_a)}  # (d)'s: float32 and int8
+    for precision, budget in budgets.items():
+        t0 = time.perf_counter()
+        m = PQ_SUBSPACES if precision == "pq" else None
+        eng = engine(precision=precision)
+        log: list = []
+        res = co.optimize_memory_bytes(
+            sizing_query_test(port, shape, eng, warm_q, probes, log),
+            budget, shape.dim, precision=precision, p=SIZING_P,
+            t_theta=SIZING_T_THETA, n_subspaces=m)
+        rec = ladder_record(res, log)
+        want = quant.capacity_for_budget(budget, shape.dim, precision,
+                                         n_subspaces=m)
+        check(res.c0 == want and res.c0 <= shape.n,
+              f"{precision}: C0 {res.c0} = capacity_for_budget {want} "
+              f"<= N {shape.n}")
+        check(res.c_best_bytes == res.c_best * quant.bytes_per_vector(
+            shape.dim, precision, n_subspaces=m),
+            f"{precision}: c_best_bytes in bytes")
+        rec.update(budget_bytes=budget, s=time.perf_counter() - t0)
+        out[precision] = rec
+        if precision == "int8":
+            tenants[precision] = (eng, res)
+    # (c) rollback over (a)'s ladder: one n_db past θ steps back a rung
+    t0 = time.perf_counter()
+    ladder = res_a.ladder
+    check(len(ladder) >= 2, f"a ladder of at least 2 rungs ({ladder})")
+    sized_searches(port, shape, f32, ladder[-1][0], warm_q, [])
+    rm = co.RollbackManager(ladder, resize=f32.resize_cache)
+    theta = rm.current[1]
+    n_db = math.floor(theta) + 1
+    check(rm.observe(n_db), f"n_db {n_db} above θ {theta} rolls back")
+    back = ladder[-2][0]
+    check(rm.current == ladder[-2] and f32.store.capacity == back,
+          f"one rung back, to C = {back} ({f32.store.capacity})")
+    c0_caps = sg.stats["captures"]
+    on = f32.search(E.SearchRequest(query=probes[0], k=shape.k))
+    captured = sg.stats["captures"] - c0_caps
+    check(captured > 0, f"the search after the rollback captures anew "
+          f"({captured})")
+    cpu.resize_cache(back)
+    off = cpu.search(E.SearchRequest(query=probes[0], k=shape.k))
+    check(np.array_equal(on.ids, off.ids) and on.stats.n_db == off.stats.n_db,
+          f"after the rollback the card's ids and n_db ({on.stats.n_db}) "
+          f"equal the CPU engine's at C = {back} ({off.stats.n_db})")
+    out["rollback"] = dict(from_c=ladder[-1][0], theta=theta, n_db_fed=n_db,
+                           to_c=back, captures_next_search=captured,
+                           n_db_next_search=on.stats.n_db,
+                           s=time.perf_counter() - t0)
+    # (d) two tenants under one budget below the sum of their optima
+    t0 = time.perf_counter()
+    opt_bytes = sum(quant.bytes_per_vector(shape.dim, p) * r.c_best
+                    for p, (_, r) in tenants.items())
+    budget = int(TENANT_BUDGET_FRAC * shape.n * quant.bytes_per_vector(
+        shape.dim, "int8")) // 10 * 10
+    demands = [co.TenantDemand(
+        tenant=p, dim=shape.dim, n_items=shape.n, precision=p,
+        query_test=sizing_query_test(port, shape, eng, warm_q, probes, []))
+        for p, (eng, _) in tenants.items()]
+    alloc = co.allocate_memory_bytes(demands, budget,
+                                     max_iters=TENANT_MAX_ITERS)
+    grain = 64  # allocate_memory_bytes's shape_grain
+    check(alloc.contended,
+          f"budget {budget}: the usable {budget - alloc.reserve_bytes} "
+          f"bytes are below the sum of the tenants' optima "
+          f"{alloc.sum_opt_bytes} (contended)")
+    for a in alloc.allocations.values():
+        hi = co._round_to(a.c_opt, grain)
+        check(co._round_to(1, grain) <= a.c_items <= hi,
+              f"{a.tenant}: {a.c_items} items within [floor, optimum "
+              f"{a.c_opt} rounded up to the grain {grain}, {hi}]")
+    check(10 * alloc.total_alloc_bytes <= 9 * budget,
+          f"total {alloc.total_alloc_bytes} <= 0.9 x budget {budget}")
+    out["tenants"] = dict(
+        budget_bytes=budget, max_iters=TENANT_MAX_ITERS,
+        sum_ladder_opt_bytes=opt_bytes,
+        reserve_bytes=alloc.reserve_bytes,
+        total_alloc_bytes=alloc.total_alloc_bytes,
+        sum_opt_bytes=alloc.sum_opt_bytes, contended=alloc.contended,
+        allocations={t: dict(c_items=a.c_items, alloc_bytes=a.alloc_bytes,
+                             c_opt=a.c_opt, opt_bytes=a.opt_bytes,
+                             satisfied=a.satisfied, ladder=a.ladder)
+                     for t, a in alloc.allocations.items()},
+        s=time.perf_counter() - t0)
+    # (e) MeMemo (host numpy) against the card engine at a 25% tier 2
+    t0 = time.perf_counter()
+    truth = port["brute_force_topk"](X, probes, shape.k)
+    mem = port["mememo"].MememoEngine(X, graph, cache_capacity=shape.cache,
+                                      prefetch_size=MEMEMO_PREFETCH)
+    web = {mode: engine(mode=mode) for mode in ("webanns", "webanns-base")}
+
+    def mememo_search(q):
+        ids, _, stats = mem.query(q, k=shape.k, ef=shape.ef)
+        return ids, stats
+
+    def web_search(eng):
+        def run(q):
+            res = eng.search(E.SearchRequest(query=q, k=shape.k))
+            return res.ids, res.stats
+        return run
+
+    base = {"mememo": (mem.external.stats, mememo_search)}
+    base.update({m: (e.external.stats, web_search(e)) for m, e in web.items()})
+    cmp = {}
+    for name, (stats, search) in base.items():
+        search(warm_q)
+        fetched0, used0 = stats.items_fetched, stats.items_used
+        ids, lat, n_db = [], [], []
+        for q in probes:
+            t1 = time.perf_counter()
+            got, st = search(q)
+            lat.append(time.perf_counter() - t1)
+            ids.append(got)
+            n_db.append(st.n_db)
+        fetched = stats.items_fetched - fetched0
+        cmp[name] = dict(
+            _latency(lat), n_db_per_query=float(np.mean(n_db)),
+            items_fetched=fetched,
+            redundancy=(1.0 - (stats.items_used - used0) / fetched
+                        if fetched else 0.0),
+            recall_at_10=port["recall_at_k"](np.stack(ids), truth))
+    check(cmp["mememo"]["redundancy"] > 0.5,
+          f"MeMemo's redundancy {cmp['mememo']['redundancy']} > 0.5")
+    for mode in web:
+        check(cmp[mode]["redundancy"] == 0.0,
+              f"{mode}'s redundancy {cmp[mode]['redundancy']} = 0.0")
+    check(cmp["webanns"]["n_db_per_query"] < cmp["mememo"]["n_db_per_query"],
+          f"WebANNS n_db a query {cmp['webanns']['n_db_per_query']} < "
+          f"MeMemo's {cmp['mememo']['n_db_per_query']}")
+    cmp["s"] = time.perf_counter() - t0
+    out["mememo_vs_webanns"] = cmp
     return out
 
 
@@ -2726,6 +3051,28 @@ def main() -> int:
     print(f"graph replay = eager loop, bit for bit, K = "
           f"{port['search'].STEPS_PER_SYNC}: "
           f"{json.dumps(record['graph_replay'])}", flush=True)
+    # 4e. cache sizing (Algorithm 2, its byte budgets, rollback, the
+    # cross-tenant allocator) and the MeMemo baseline on the card engine
+    stamp(record, "cache_sizing")
+    ops = port["ops"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sizing = run_cache_sizing(port, shape, X, graph, codebook)
+    counts = ops.launch_counts()
+    record["cache_sizing_s"] = time.perf_counter() - t0
+    for kname in ("hop_step", "gather_distance", "dequant_gather_distance",
+                  "adc_gather_distance", "merge_topk"):
+        check(counts[kname] > 0,
+              f"kernel {kname} launched by the cache-sizing probes "
+              f"({counts[kname]})")
+    record["launches"]["cache_sizing"] = counts
+    for kname, n in counts.items():
+        launches[kname] += n
+    sizing["card"] = device_line()
+    record["cache_sizing"] = sizing
+    print(f"cache sizing and the baseline, {sizing['card']}, in "
+          f"{record['cache_sizing_s']:.1f} s: {json.dumps(sizing)}",
+          flush=True)
     # 4b. the distributed substrate: flat scan at 480k, hnsw mode
     stamp(record, "substrate")
     sub = run_substrate(port, shape, dev)

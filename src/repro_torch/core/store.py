@@ -366,6 +366,13 @@ class ExternalStore:
         return unwrap_backend(self.backend)
 
     @property
+    def simulate_latency(self) -> bool:
+        """Whether fetches sleep their modeled cost (the LatencyModel's
+        ``simulate``) rather than only accounting it."""
+        b = self.backend
+        return b.simulate if isinstance(b, LatencyModel) else False
+
+    @property
     def n_items(self) -> int:
         return self.backend.n_items
 

@@ -1146,3 +1146,95 @@ def test_hop_step_wrapper_rejects_what_the_kernel_does_not_take(hop_data):
                          torch.ones(3, dtype=torch.bool, device=dev))
     with pytest.raises(ValueError, match="unknown metric"):
         HS.hop_step_cuda(*args, t2.table, t2.scales, *maps, "dot", 8, 100)
+
+
+# ------------------------------------------------- cache sizing on the card
+
+SIZING_T_IN = 1e-4  # count-only latency model: seconds an item visited
+
+
+def _sizing_ladder(eng, Q, t_theta, max_iters):
+    """Algorithm 2 on ``eng`` with a ``t_query`` computed from the
+    probes' counts (no clock): the ladder as plain values and each
+    step's per-probe ids and ``n_db``."""
+    from repro_torch.core import cache_opt as CO
+
+    seen = []
+    t_db = eng.external.access_cost(16)
+
+    def query_test(c):
+        eng.resize_cache(c, warm=True)
+        res = [eng.search(E.SearchRequest(query=q, k=10, ef=LOOP_EF))
+               for q in Q]
+        seen.append((c, [r.ids.tolist() for r in res],
+                     [r.stats.n_db for r in res]))
+        n_db = float(np.mean([r.stats.n_db for r in res]))
+        n_q = float(np.mean([r.stats.n_visited for r in res]))
+        return CO.QueryTestStats(n_db=n_db, n_q=n_q,
+                                 t_query=n_q * SIZING_T_IN + n_db * t_db,
+                                 t_db=t_db)
+
+    res = CO.optimize_memory_size(query_test, c0=eng.n, p=0.8,
+                                  t_theta=t_theta, max_iters=max_iters)
+    steps = [(s.c, s.theta, s.accepted, s.stats.n_db, s.stats.n_q)
+             for s in res.steps]
+    return (res.c_best, steps), seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,t_theta,max_iters", [
+    ("webanns", 0.1, 3), ("webanns-base", 0.02, 32)])
+def test_algorithm2_count_model_same_ladder_on_card_as_on_cpu(
+        cuda, mode, t_theta, max_iters):
+    """Algorithm 2 driving a card engine and a CPU engine on one graph,
+    its ``t_query`` from counts alone: the same ladder (C, θ, accepted,
+    n_db, n_q), the same c_best and the same ids at every step."""
+    X, Q, g, _ = _loop_inputs("float32")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = E.WebANNSEngine(X, g, E.EngineConfig(
+            mode=mode, cache_capacity=LOOP_N, device=dev))
+        out[dev] = _sizing_ladder(eng, Q[:4], t_theta, max_iters)
+    assert out["cuda"] == out["cpu"]
+    (c_best, steps), _ = out["cuda"]
+    assert c_best < LOOP_N and len(steps) >= 2
+    assert steps[0][3] == 0  # a warm full tier 2 needs no access
+
+
+@pytest.mark.cuda
+def test_resize_ladder_captures_anew_and_replays_as_the_eager_loop(
+        cuda, monkeypatch):
+    """Down a ladder of resizes: the first search after each
+    ``resize_cache`` captures anew, the next ones replay and capture
+    nothing, and every search equals an engine whose phases run the
+    eager loop (ids and distances bit for bit, the same ``n_db``). The
+    live captures stay bounded: a resized slab's captures are dropped."""
+    X, Q, g, _ = _loop_inputs("float32")
+    cfg = E.EngineConfig(cache_capacity=LOOP_N, device="cuda")
+    ladder = (600, 450, 300, 150, 150, 75)
+    got, alive = [], []
+    eng = E.WebANNSEngine(X, g, cfg)
+    for c in ladder:
+        eng.resize_cache(c, warm=True)
+        step_graph.reset_stats()
+        first = eng.search(E.SearchRequest(query=Q[0], k=10, ef=LOOP_EF))
+        assert step_graph.stats["captures"] > 0, c
+        step_graph.reset_stats()
+        rest = [eng.search(E.SearchRequest(query=q, k=10, ef=LOOP_EF))
+                for q in Q[1:4]]
+        assert step_graph.stats["captures"] == 0, c
+        assert step_graph.stats["replays"] > 0, c
+        got.append([first] + rest)
+        alive.append(step_graph.n_captures())
+    assert max(alive) <= alive[0], alive
+    monkeypatch.setattr(S, "batch_search_phase", S.batch_search_phase_eager)
+    eng = E.WebANNSEngine(X, g, cfg)
+    step_graph.reset_stats()
+    for c, results in zip(ladder, got):
+        eng.resize_cache(c, warm=True)
+        for q, r in zip(Q[:4], results):
+            want = eng.search(E.SearchRequest(query=q, k=10, ef=LOOP_EF))
+            np.testing.assert_array_equal(r.ids, want.ids)
+            np.testing.assert_array_equal(r.dists, want.dists)
+            assert r.stats.n_db == want.stats.n_db
+    assert step_graph.stats["captures"] == step_graph.stats["replays"] == 0
