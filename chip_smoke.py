@@ -107,7 +107,9 @@ the script exits non-zero:
 5. times: each kernel, its plain version and its bound (CUDA events;
    B.8 beside the per-op step at float32, int8 and float16, B in {1,
    32}, layer 0 and an upper layer, and the device kernels of one
-   replayed hop step through each, from torch.profiler;
+   replayed hop step through each, from torch.profiler; B.8's stage
+   split from its timing instantiation's clock stamps beside the launch
+   floor, an empty kernel on its grid, at float32;
    the merge also at the beam merge's rows, the top-k also at
    retrieval's shape, each beside ``torch.topk``; the distance matrix at
    the flat scan's and retrieval's shapes beside ``torch.matmul``),
@@ -226,6 +228,7 @@ def load_port():
     from repro_torch.data.synthetic import corpus_embeddings
     from repro_torch.core import distributed
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import hop_step as hop_step_mod
     from repro_torch.kernels import topk as topk_mod
     from repro_torch.kernels.topk import TOPK_MAX_K
     from repro_torch.launch import mesh
@@ -238,7 +241,8 @@ def load_port():
         engine=engine, brute_force_topk=brute_force_topk,
         recall_at_k=recall_at_k, build_hnsw=build_hnsw,
         corpus_embeddings=corpus_embeddings, build=_build, ops=ops, ref=ref,
-        topk=topk_mod, kernel_names=kernel_names(_build.sources()),
+        topk=topk_mod, hop_step=hop_step_mod,
+        kernel_names=kernel_names(_build.sources()),
         convert=convert, quant=quant, pq=pq, InMemoryBackend=InMemoryBackend,
         distributed=distributed, mesh=mesh, topk_max_k=TOPK_MAX_K,
         configs=configs, click_batches=click_batches, embeddings=embeddings,
@@ -273,12 +277,14 @@ def ptxas_report(logs: dict) -> dict:
         entries = []
         for block in logs[src].split("Compiling entry function")[1:]:
             fn = re.search(r"([a-z_]+_kernel)I(\w*?)EEv", block)
-            args = re.findall(r"L[ib](\d+)E", fn[2]) if fn else []
+            if fn is None:  # a kernel with no template: not a variant
+                continue
+            args = re.findall(r"L[ib](\d+)E", fn[2])
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", block)
             entries.append(dict(
-                kernel=f"{fn[1]}<{','.join(args)}>" if fn else None,
+                kernel=f"{fn[1]}<{','.join(args)}>",
                 registers=int(regs[1]) if regs else None,
                 spill_stores=int(spill[1]) if spill else 0,
                 spill_loads=int(spill[2]) if spill else 0))
@@ -2310,6 +2316,7 @@ def time_hop_step(port, shape: Shape, X, graph, dev, rng, launches,
                         Qt, N_, st, tier2, "l2", ef)] * HOP_TIMED_CALLS),
                     bound_ms=t, bound_by=by)
     main = shapes[f"float32_layer0_B{shape.batch}"]
+    split = hop_step_split(port, shape, X, graph, dev, rng)
     return dict(
         name="hop_step", route="cuda",
         source="src/repro_torch/csrc/hop_step.cu",
@@ -2319,9 +2326,69 @@ def time_hop_step(port, shape: Shape, X, graph, dev, rng, launches,
         launches=launches["hop_step"], max_abs_err=err["hop_step"],
         ms=main["ms"], plain_ms=main["per_op_ms"],
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-        library_ms=None, shapes=shapes,
+        library_ms=None, shapes=shapes, split=split,
         replayed_step_kernels=replayed_step_kernels(port, shape, X, graph,
                                                     dev, rng))
+
+
+# stamped steps a split is averaged over, after as many warm-up steps
+SPLIT_CALLS = 50
+
+
+def hop_step_split(port, shape: Shape, X, graph, dev, rng) -> dict:
+    """Where a float32 step's time goes: the kernel's timing instantiation
+    (``hop_step.hop_step_stamps_cuda``) stamps the SM clock at its stage
+    boundaries (``hop_step.STAMPS``); over SPLIT_CALLS steps on one state,
+    each boundary's cycles after the block's start, the mean over the
+    active queries' blocks and the mean of the slowest block's, also in
+    µs at the SM clock measured here (``sm_cycles_per_ns``). Beside it the
+    launch floor: an empty kernel on the step's grid, device time a call
+    as ``device_ms`` times the step. At layer 0 (ef 64, degree 32) and an
+    upper layer (ef 1, degree 16), B = 32 and 1, over a full cached tier
+    2."""
+    S, hs = port["search"], port["hop_step"]
+    nbrs = np.asarray(graph.neighbors, np.int32)
+    layers = {"layer0": (shape.ef, nbrs[0]),
+              "upper": (1, np.ascontiguousarray(nbrs[1, :, :16]))}
+    Qn = make_queries(X, shape.batch, seed=23)
+    tier2 = hop_tier2(port, X, "float32", True, rng, shape.cache, dev)
+    cache = tier2.cache
+    out = {"stages": list(hs.STAMPS)}
+    for name, (ef, rows) in layers.items():
+        N_ = torch.as_tensor(rows, device=dev)
+        for B in (shape.batch, 1):
+            Qt = torch.as_tensor(Qn[:B], device=dev)
+            for _ in range(20):  # a state with an active query
+                st = hop_state(S, rng, X, Qn[:B], rows, ef,
+                               ef + rows.shape[1] + 1, ef, 100_000, "l2",
+                               dev)
+                args = (Qt, N_, *(t.contiguous()
+                                  for t in S._state_tensors(st)),
+                        tier2.table, None, cache.slot_of, cache.id_of, "l2",
+                        ef, 100_000)
+                if bool(hs.hop_step_stamps_cuda(*args)[8].any()):
+                    break
+            stamps = []
+            for i in range(2 * SPLIT_CALLS):
+                got = hs.hop_step_stamps_cuda(*args)
+                if i >= SPLIT_CALLS:
+                    stamps.append(got[9][got[8]])
+            st_ = torch.stack(stamps).double()  # (calls, active, stages)
+            rel = st_ - st_[..., :1]
+            per_ns = hs.sm_cycles_per_ns(dev)
+            mean = rel.mean((0, 1)).tolist()
+            slowest = rel.amax(1).mean(0).tolist()
+            out[f"{name}_B{B}"] = dict(
+                ef=ef, degree=int(rows.shape[1]), active=int(st_.shape[1]),
+                cycles=mean, slowest_cycles=slowest,
+                us=[c / per_ns / 1e3 for c in mean],
+                slowest_us=[c / per_ns / 1e3 for c in slowest],
+                sm_ghz=per_ns,
+                launch_floor_ms=device_ms(
+                    [lambda: hs.launch_floor_cuda(B, dev)] * HOP_TIMED_CALLS),
+                step_ms=device_ms([lambda: S.batch_hop_step(
+                    Qt, N_, st, tier2, "l2", ef)] * HOP_TIMED_CALLS))
+    return out
 
 
 # CUgraphNodeType (cuda.h)

@@ -60,6 +60,12 @@
 // neighbours 32 at a time, one a lane); step 7 spreads the usable rows
 // over the 8 warps with 16-byte loads. There is no host sync and no
 // allocation, so a CUDA graph captures the launch like any other.
+//
+// Timing: hop_step_stamps launches the float32 kernel's TIMED
+// instantiation, which writes clock64() at the stage boundaries (kStamps a
+// query) to a small device buffer; hop_step_floor launches an empty kernel
+// of the same grid (the launch floor) and hop_step_clock measures the SM
+// clock against the global timer. The engine launches none of them.
 
 #include <climits>
 #include <cstdint>
@@ -79,6 +85,11 @@ constexpr int kPad = -1;  // graph.PAD: an absent neighbour slot
 constexpr int kMaxRow = warpmerge::kSortMax;
 
 enum Elem { kF32 = 0, kI8 = 1, kF16 = 2 };
+
+// the stage boundaries a timed launch stamps, in cycles of the block's SM:
+// 0 start, 1 step 0 (beam staged, visited and L copied), 2 steps 1-3, 3
+// steps 4-6 (and 9-10), 4 step 7, 5 step 8; an inactive query stamps 0-2
+constexpr int kStamps = 6;
 
 struct HopArgs {
   // inputs
@@ -111,7 +122,14 @@ struct HopArgs {
   int d, n_nodes, deg, ef, cap, n_rows, n_slot_of, gate_stride, metric;
   bool vec;  // 16-byte loads of table rows and queries
   bool copy16;  // visited rows in and out share their offset mod 16
+  long long* stamps;  // (B, kStamps) for the TIMED instantiation, else null
 };
+
+// clock64() into stamp i of query b, by the calling thread (TIMED only)
+template <bool TIMED>
+__device__ __forceinline__ void stamp(const HopArgs& a, int b, int i) {
+  if constexpr (TIMED) a.stamps[static_cast<size_t>(b) * kStamps + i] = clock64();
+}
 
 __device__ __forceinline__ long long clamp_ll(long long v, long long lo,
                                               long long hi) {
@@ -163,7 +181,7 @@ __device__ __forceinline__ float distance(const HopArgs& a, int row,
   }
 }
 
-template <int ELEM, int E>
+template <int ELEM, int E, bool TIMED>
 __global__ void __launch_bounds__(kThreads)
 hop_step_kernel(const __grid_constant__ HopArgs a) {
   __shared__ float cand_d[kMaxRow];  // the merge's row: beam, then new
@@ -187,6 +205,7 @@ hop_step_kernel(const __grid_constant__ HopArgs a) {
   const int cap = a.cap;
   const size_t W = static_cast<size_t>(a.n_nodes) + 1;
   const size_t be = static_cast<size_t>(b) * ef;
+  if (tid == 0) stamp<TIMED>(a, b, 0);
 
   // 0. the beam into shared memory; visited and L copied to the outputs
   for (int i = tid; i < ef; i += kThreads) {
@@ -199,6 +218,7 @@ hop_step_kernel(const __grid_constant__ HopArgs a) {
   for (int i = tid; i < cap; i += kThreads)
     a.o_miss_ids[bc + i] = a.miss_ids[bc + i];
   __syncthreads();
+  if (tid == 0) stamp<TIMED>(a, b, 1);
 
   // 1-3. active test, the pick, its mark
   if (warp == 0) {
@@ -233,6 +253,7 @@ hop_step_kernel(const __grid_constant__ HopArgs a) {
     }
   }
   __syncthreads();
+  if (tid == 0) stamp<TIMED>(a, b, 2);
 
   if (!s_active) {  // the state as it was
     for (int i = tid; i < ef; i += kThreads) {
@@ -300,6 +321,7 @@ hop_step_kernel(const __grid_constant__ HopArgs a) {
     }
   }
   __syncthreads();
+  if (tid == 0) stamp<TIMED>(a, b, 3);
 
   // 7. the usable rows' distances, a warp a row
   const float* q = a.Q + static_cast<size_t>(b) * a.d;
@@ -317,6 +339,7 @@ hop_step_kernel(const __grid_constant__ HopArgs a) {
     }
   }
   __syncthreads();
+  if (tid == 0) stamp<TIMED>(a, b, 4);
 
   // 8. the merge, k = ef; explored follows each winner's position
   if (warp == 0) {
@@ -329,47 +352,63 @@ hop_step_kernel(const __grid_constant__ HopArgs a) {
       a.o_dists[be + r] = out_d[r];
       a.o_explored[be + r] = src >= 0 && src < ef && expl[src];
     }
+    if (lane == 0) stamp<TIMED>(a, b, 5);
   }
+}
+
+__global__ void launch_floor_kernel() {}
+
+// SM cycles and global-timer nanoseconds over a spin of `cycles` cycles
+__global__ void clock_kernel(long long cycles, long long* out) {
+  long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long c0 = clock64();
+  long long c1 = c0;
+  while (c1 - c0 < cycles) c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  out[0] = c1 - c0;
+  out[1] = g1 - g0;
+}
+
+template <int ELEM, bool TIMED>
+cudaError_t launch(const HopArgs& a, int B, cudaStream_t s) {
+  const int M = a.ef + a.deg;
+  if (M <= 32)
+    hop_step_kernel<ELEM, 1, TIMED><<<B, kThreads, 0, s>>>(a);
+  else if (M <= 64)
+    hop_step_kernel<ELEM, 2, TIMED><<<B, kThreads, 0, s>>>(a);
+  else if (M <= 128)
+    hop_step_kernel<ELEM, 4, TIMED><<<B, kThreads, 0, s>>>(a);
+  else
+    hop_step_kernel<ELEM, 8, TIMED><<<B, kThreads, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 template <int ELEM>
 cudaError_t launch(const HopArgs& a, int B, cudaStream_t s) {
-  const int M = a.ef + a.deg;
-  if (M <= 32)
-    hop_step_kernel<ELEM, 1><<<B, kThreads, 0, s>>>(a);
-  else if (M <= 64)
-    hop_step_kernel<ELEM, 2><<<B, kThreads, 0, s>>>(a);
-  else if (M <= 128)
-    hop_step_kernel<ELEM, 4><<<B, kThreads, 0, s>>>(a);
-  else
-    hop_step_kernel<ELEM, 8><<<B, kThreads, 0, s>>>(a);
-  return cudaGetLastError();
+  if constexpr (ELEM == kF32) {
+    if (a.stamps != nullptr) return launch<ELEM, true>(a, B, s);
+  }
+  return launch<ELEM, false>(a, B, s);
 }
 
-}  // namespace
-
-// C entry for ctypes. All pointers are device pointers; `elem` is 0 for a
-// float32 table, 1 for int8 (with `scales`), 2 for float16; `slot_of` and
-// `id_of` are null without a cache; `gate` is null or a bool read at
-// b * gate_stride (0 for one gate for all); `stream` is the caller's
-// cudaStream_t. Returns cudaGetLastError() after the launch.
-extern "C" int hop_step(
-    const float* Q, int d, const int* neighbors, int n_nodes, int deg,
-    const int* beam_ids, const float* beam_dists,
-    const unsigned char* explored, int ef, const unsigned char* visited,
-    const int* miss_ids, int cap, const long long* miss_count,
-    const long long* n_hops, const long long* n_dist, const void* table,
-    int elem, const float* scales, int n_rows, const int* slot_of,
-    int n_slot_of, const int* id_of, const unsigned char* gate,
-    int gate_stride, long long trigger, long long max_hops, int metric,
-    int B, int* o_ids, float* o_dists, unsigned char* o_explored,
-    unsigned char* o_visited, int* o_miss_ids, long long* o_miss_count,
-    long long* o_n_hops, long long* o_n_dist, unsigned char* o_active,
-    void* stream) {
+int run(const float* Q, int d, const int* neighbors, int n_nodes, int deg,
+        const int* beam_ids, const float* beam_dists,
+        const unsigned char* explored, int ef, const unsigned char* visited,
+        const int* miss_ids, int cap, const long long* miss_count,
+        const long long* n_hops, const long long* n_dist, const void* table,
+        int elem, const float* scales, int n_rows, const int* slot_of,
+        int n_slot_of, const int* id_of, const unsigned char* gate,
+        int gate_stride, long long trigger, long long max_hops, int metric,
+        int B, int* o_ids, float* o_dists, unsigned char* o_explored,
+        unsigned char* o_visited, int* o_miss_ids, long long* o_miss_count,
+        long long* o_n_hops, long long* o_n_dist, unsigned char* o_active,
+        long long* stamps, void* stream) {
   if (B == 0) return 0;
   if (B < 0 || ef < 1 || deg < 0 || ef + deg > kMaxRow || n_nodes < 1 ||
       n_rows < 1 || d < 1 || cap < 0 || metric < 0 || metric > 2 ||
-      (slot_of != nullptr && (id_of == nullptr || n_slot_of < 1)))
+      (slot_of != nullptr && (id_of == nullptr || n_slot_of < 1)) ||
+      (stamps != nullptr && elem != kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   HopArgs a;
   a.Q = Q;
@@ -409,6 +448,7 @@ extern "C" int hop_step(
   a.metric = metric;
   a.copy16 = (reinterpret_cast<uintptr_t>(visited) & 15) ==
              (reinterpret_cast<uintptr_t>(o_visited) & 15);
+  a.stamps = stamps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (elem) {
     case kF32:
@@ -424,4 +464,73 @@ extern "C" int hop_step(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// C entry for ctypes. All pointers are device pointers; `elem` is 0 for a
+// float32 table, 1 for int8 (with `scales`), 2 for float16; `slot_of` and
+// `id_of` are null without a cache; `gate` is null or a bool read at
+// b * gate_stride (0 for one gate for all); `stream` is the caller's
+// cudaStream_t. Returns cudaGetLastError() after the launch.
+extern "C" int hop_step(
+    const float* Q, int d, const int* neighbors, int n_nodes, int deg,
+    const int* beam_ids, const float* beam_dists,
+    const unsigned char* explored, int ef, const unsigned char* visited,
+    const int* miss_ids, int cap, const long long* miss_count,
+    const long long* n_hops, const long long* n_dist, const void* table,
+    int elem, const float* scales, int n_rows, const int* slot_of,
+    int n_slot_of, const int* id_of, const unsigned char* gate,
+    int gate_stride, long long trigger, long long max_hops, int metric,
+    int B, int* o_ids, float* o_dists, unsigned char* o_explored,
+    unsigned char* o_visited, int* o_miss_ids, long long* o_miss_count,
+    long long* o_n_hops, long long* o_n_dist, unsigned char* o_active,
+    void* stream) {
+  return run(Q, d, neighbors, n_nodes, deg, beam_ids, beam_dists, explored,
+             ef, visited, miss_ids, cap, miss_count, n_hops, n_dist, table,
+             elem, scales, n_rows, slot_of, n_slot_of, id_of, gate,
+             gate_stride, trigger, max_hops, metric, B, o_ids, o_dists,
+             o_explored, o_visited, o_miss_ids, o_miss_count, o_n_hops,
+             o_n_dist, o_active, nullptr, stream);
+}
+
+// hop_step's arguments and, before the stream, a (B, kStamps) int64
+// buffer: the float32 step's TIMED instantiation, its stage boundaries in
+// SM cycles. Not the engine's: for measuring the step only.
+extern "C" int hop_step_stamps(
+    const float* Q, int d, const int* neighbors, int n_nodes, int deg,
+    const int* beam_ids, const float* beam_dists,
+    const unsigned char* explored, int ef, const unsigned char* visited,
+    const int* miss_ids, int cap, const long long* miss_count,
+    const long long* n_hops, const long long* n_dist, const void* table,
+    int elem, const float* scales, int n_rows, const int* slot_of,
+    int n_slot_of, const int* id_of, const unsigned char* gate,
+    int gate_stride, long long trigger, long long max_hops, int metric,
+    int B, int* o_ids, float* o_dists, unsigned char* o_explored,
+    unsigned char* o_visited, int* o_miss_ids, long long* o_miss_count,
+    long long* o_n_hops, long long* o_n_dist, unsigned char* o_active,
+    long long* stamps, void* stream) {
+  if (stamps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(Q, d, neighbors, n_nodes, deg, beam_ids, beam_dists, explored,
+             ef, visited, miss_ids, cap, miss_count, n_hops, n_dist, table,
+             elem, scales, n_rows, slot_of, n_slot_of, id_of, gate,
+             gate_stride, trigger, max_hops, metric, B, o_ids, o_dists,
+             o_explored, o_visited, o_miss_ids, o_miss_count, o_n_hops,
+             o_n_dist, o_active, stamps, stream);
+}
+
+// An empty kernel on the step's grid (B blocks of kThreads): the launch
+// floor a step's time is measured against.
+extern "C" int hop_step_floor(int B, void* stream) {
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  launch_floor_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[0] SM cycles and out[1] global-timer nanoseconds over one spin of
+// `cycles` cycles on one thread: the SM clock a stamp's cycles convert by.
+extern "C" int hop_step_clock(long long cycles, long long* out,
+                              void* stream) {
+  clock_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(cycles, out);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,12 @@ the neighbour row, the tier-2 lookups and the usable rows, at
 Its plain version is ``repro_torch.core.search.batch_hop_step_plain``
 (the step as PyTorch ops and the gather and merge kernels); which of the
 two a step takes is :func:`repro_torch.kernels.ops.hop_step_takes`.
+
+For measuring the step only, never on the engine's path:
+:func:`hop_step_stamps_cuda` runs the float32 kernel's timing
+instantiation, which stamps the SM clock at its stage boundaries;
+:func:`launch_floor_cuda` launches an empty kernel on the step's grid;
+:func:`sm_cycles_per_ns` reads the SM clock against the global timer.
 """
 
 from __future__ import annotations
@@ -34,19 +40,25 @@ ELEM_CODES = {torch.float32: 0, torch.int8: 1, torch.float16: 2}
 # kernel launches since the last ops.reset_launch_counts()
 launches = {"hop_step": 0}
 
+# the stage boundaries a timed step stamps (kStamps in csrc/hop_step.cu),
+# each the SM cycle at which the stage ends, 0 the block's start
+STAMPS = ("start", "step0", "steps1_3", "steps4_6", "step7", "step8")
 
-def _entry():
-    fn = _build.library("hop_step").hop_step
+
+def _entry(name: str = "hop_step"):
+    fn = getattr(_build.library("hop_step"), name)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, p, i, i,  # Q, d, neighbors, n_nodes, deg
-                       p, p, p, i, p,  # beam ids, dists, explored, ef, visited
-                       p, i, p, p, p,  # miss ids, cap, miss_count, n_hops, n_dist
-                       p, i, p, i, p,  # table, elem, scales, n_rows, slot_of
-                       i, p, p, i,  # n_slot_of, id_of, gate, gate_stride
-                       ll, ll, i, i,  # trigger, max_hops, metric, B
-                       p, p, p, p, p, p, p, p, p,  # the nine outputs
-                       p]  # stream
+        args = [p, i, p, i, i,  # Q, d, neighbors, n_nodes, deg
+                p, p, p, i, p,  # beam ids, dists, explored, ef, visited
+                p, i, p, p, p,  # miss ids, cap, miss_count, n_hops, n_dist
+                p, i, p, i, p,  # table, elem, scales, n_rows, slot_of
+                i, p, p, i,  # n_slot_of, id_of, gate, gate_stride
+                ll, ll, i, i,  # trigger, max_hops, metric, B
+                p, p, p, p, p, p, p, p, p]  # the nine outputs
+        if name == "hop_step_stamps":
+            args.append(p)  # the (B, 6) stamps
+        fn.argtypes = args + [p]  # stream
         fn.restype = ctypes.c_int
     return fn
 
@@ -78,6 +90,49 @@ def hop_step_cuda(
     """Launch the kernel: the new state as ``(beam_ids, beam_dists,
     explored, visited, miss_ids, miss_count, n_hops, n_dist)`` and the
     (B,) bool ``active``, all new tensors."""
+    out = _launch("hop_step", Q, neighbors, beam_ids, beam_dists, explored,
+                  visited, miss_ids, miss_count, n_hops, n_dist, table,
+                  scales, slot_of, id_of, metric, trigger, max_hops, gate)
+    if Q.shape[0]:
+        launches["hop_step"] += 1
+    return out
+
+
+def hop_step_stamps_cuda(*args, **kwargs) -> Tuple[torch.Tensor, ...]:
+    """:func:`hop_step_cuda`'s step (same arguments, a float32 table) by
+    the kernel's timing instantiation: its nine outputs and a (B, 6) int64
+    tensor of the SM cycle at which each stage ends (:data:`STAMPS`; an
+    inactive query's later stages are 0). Not counted as a launch."""
+    return _launch("hop_step_stamps", *args, **kwargs)
+
+
+def launch_floor_cuda(B: int, device: torch.device) -> None:
+    """An empty kernel on the step's grid: B blocks of 256 threads."""
+    with torch.cuda.device(device):
+        err = _build.library("hop_step").hop_step_floor(
+            ctypes.c_int(B),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"hop_step_floor launch failed: CUDA error {err}")
+
+
+def sm_cycles_per_ns(device: torch.device, cycles: int = 20_000_000) -> float:
+    """The SM clock in cycles a nanosecond: one thread spins ``cycles``
+    cycles between two reads of the global timer (synchronises)."""
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = _build.library("hop_step").hop_step_clock(
+            ctypes.c_longlong(cycles), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"hop_step_clock launch failed: CUDA error {err}")
+    c, ns = out.tolist()
+    return c / ns
+
+
+def _launch(entry, Q, neighbors, beam_ids, beam_dists, explored, visited,
+            miss_ids, miss_count, n_hops, n_dist, table, scales, slot_of,
+            id_of, metric, trigger, max_hops, gate=None):
     dev = Q.device
     if dev.type != "cuda":
         raise ValueError(f"hop_step kernel needs CUDA tensors, got {dev}")
@@ -140,11 +195,18 @@ def hop_step_cuda(
            torch.empty_like(miss_ids), torch.empty_like(miss_count),
            torch.empty_like(n_hops), torch.empty_like(n_dist),
            torch.empty((B,), dtype=torch.bool, device=dev))
+    extra = []
+    if entry == "hop_step_stamps":
+        if table.dtype != torch.float32:
+            raise ValueError("the timed step takes a float32 table")
+        out += (torch.zeros((B, len(STAMPS)), dtype=torch.int64,
+                            device=dev),)
+        extra = [out[-1].data_ptr()]
     if B == 0:
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(
+        err = _entry(entry)(
             Q.data_ptr(), d, neighbors.data_ptr(), N, deg,
             beam_ids.data_ptr(), beam_dists.data_ptr(), explored.data_ptr(),
             ef, visited.data_ptr(),
@@ -154,9 +216,8 @@ def hop_step_cuda(
             _ptr(slot_of), 0 if slot_of is None else slot_of.shape[0],
             _ptr(id_of), _ptr(gate), gate_stride,
             int(trigger), int(max_hops), METRIC_CODES[metric], B,
-            *(t.data_ptr() for t in out), stream,
+            *(t.data_ptr() for t in out[:9]), *extra, stream,
         )
     if err != 0:
-        raise RuntimeError(f"hop_step launch failed: CUDA error {err}")
-    launches["hop_step"] += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     return out

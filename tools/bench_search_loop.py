@@ -5,7 +5,7 @@ device busy time on the warm engines, so that two trees can be held side
 by side in one call on the card.
 
     python3 tools/bench_search_loop.py --src DIR --out FILE \\
-        [--graph-cache FILE]
+        [--graph-cache FILE] [--part paths|hop_step|both]
 
 The measurement is this checkout's: the configuration, queries, seeds and
 helpers come from its ``chip_smoke.py`` (``Shape``, ``make_queries``,
@@ -20,6 +20,12 @@ one profiled and one sync-counted search a path. ``--graph-cache`` keeps
 the HNSW graph (a numpy build, the same in every tree) in an ``.npz`` for
 the next run. To compare a parent and a change on one card, run parent,
 change, change, parent in one call, each writing its own ``--out``.
+``--part hop_step`` (or ``both``) times the hop-step kernel B.8 instead
+of (or after) the paths, as ``chip_smoke.py`` phase 5 does
+(``time_hop_step``): its time at each shape beside the per-op step, its
+stage split from the kernel's timing instantiation and the launch floor
+(``hop_step_split``, so the tree must have that instantiation), and the
+device kernels of one replayed hop step.
 Prints the card and the output path; needs CUDA.
 """
 
@@ -46,7 +52,7 @@ def load_port(src: Path) -> dict:
     helpers take; ``step_graph`` only where the tree has it."""
     sys.path.insert(0, str(src))
     import repro_torch.core.engine as engine
-    from repro_torch.core import pq, search
+    from repro_torch.core import pq, quant, search, store
     from repro_torch.core.eval import brute_force_topk, recall_at_k
     from repro_torch.core.graph import HNSWGraph
     from repro_torch.core.hnsw import build_hnsw
@@ -55,6 +61,7 @@ def load_port(src: Path) -> dict:
     from repro_torch.kernels import _build, ops
 
     port = dict(engine=engine, pq=pq, search=search, ops=ops, build=_build,
+                quant=quant, store=store,
                 brute_force_topk=brute_force_topk, recall_at_k=recall_at_k,
                 HNSWGraph=HNSWGraph, build_hnsw=build_hnsw,
                 InMemoryBackend=InMemoryBackend,
@@ -66,6 +73,12 @@ def load_port(src: Path) -> dict:
         step_graph = None
     if step_graph is not None:
         port["step_graph"] = step_graph
+    try:
+        from repro_torch.kernels import hop_step
+    except ImportError:  # a tree from before the hop-step kernel
+        hop_step = None
+    if hop_step is not None:
+        port["hop_step"] = hop_step
     return port
 
 
@@ -92,6 +105,8 @@ def main() -> int:
                     help="the src directory of the tree to measure")
     ap.add_argument("--out", type=Path, required=True)
     ap.add_argument("--graph-cache", type=Path, default=None)
+    ap.add_argument("--part", choices=("paths", "hop_step", "both"),
+                    default="paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_search_loop: needs an NVIDIA GPU", file=sys.stderr)
@@ -106,6 +121,22 @@ def main() -> int:
     out["build_s"] = time.perf_counter() - t0
     X = port["corpus_embeddings"](shape.n, shape.dim, seed=cs.CORPUS_SEED)
     graph, out["hnsw_build_s"] = load_graph(port, shape, X, args.graph_cache)
+    if args.part != "paths":
+        out["hop_step"] = cs.time_hop_step(
+            port, shape, X, graph, torch.device("cuda"),
+            np.random.default_rng(0), {"hop_step": 0}, {"hop_step": 0.0})
+        print(f"hop step: {json.dumps(out['hop_step'])}", flush=True)
+    if args.part != "hop_step":
+        measure_paths(port, shape, X, graph, out)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(out, indent=1))
+    print(f"card: {out['card']}; wrote {args.out}")
+    return 0
+
+
+def measure_paths(port, shape: cs.Shape, X, graph, out: dict) -> None:
+    """The first request, timed rounds and costs of every path, into
+    ``out``."""
     Q = cs.make_queries(X, shape.batch, seed=cs.QUERY_SEED)
     truth = port["brute_force_topk"](X, Q, shape.k)
     codebook = port["pq"].train_pq(X, n_subspaces=cs.PQ_SUBSPACES,
@@ -147,10 +178,6 @@ def main() -> int:
     out["paths"] = e2e
     out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     out["shape"] = dataclasses.asdict(shape)
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps(out, indent=1))
-    print(f"card: {out['card']}; wrote {args.out}")
-    return 0
 
 
 if __name__ == "__main__":
