@@ -802,6 +802,50 @@ def hop_tier2(port, X: np.ndarray, precision: str, cached: bool, rng,
                    if precision == "int8" else None)
 
 
+def tie_corpus(rng, n: int, dim: int, n_queries: int):
+    """(X, Q) whose l2 and ip distances tie exactly: rows drawn from 12
+    distinct integer-valued ones, queries of small integers, so every such
+    distance is a small integer, exact in any order of summation, and a
+    beam's entries and a step's new ones tie with each other and across
+    the two (float32 and float16; int8 and cos tie among equal rows)."""
+    base = rng.integers(-2, 3, (12, dim)).astype(np.float32)
+    X = base[rng.integers(0, 12, n)]
+    Q = (base[rng.integers(0, 12, n_queries)]
+         + rng.integers(-1, 2, (n_queries, dim))).astype(np.float32)
+    return X, Q
+
+
+def shuffle_beams(S, state, rng):
+    """``state`` with each beam's entries (id, dist, explored together) in
+    a random order, sentinels among them: beams out of (dist, position)
+    order, which B.8 merges by its full sort."""
+    B, ef = state.beam.ids.shape
+    perm = torch.as_tensor(np.argsort(rng.random((B, ef)), axis=1),
+                           device=state.beam.ids.device)
+    beam = S.Beam(*(t.gather(1, perm) for t in (
+        state.beam.ids, state.beam.dists, state.beam.explored)))
+    return dataclasses.replace(state, beam=beam)
+
+
+def duplicate_beams(S, state, rng):
+    """``state`` with ids repeated: in each beam of two or more entries one
+    entry takes an earlier entry's id, and the beam's ids are no longer
+    visited, so a neighbour may repeat one too. The merge's dedup then has
+    work (B.8's exact fallback, ``warp_merge.cuh``'s merge_row)."""
+    ids = state.beam.ids.clone()
+    visited = state.visited.clone()
+    n = visited.shape[1] - 1
+    for b in range(ids.shape[0]):
+        live = (ids[b] >= 0).nonzero()[:, 0].tolist()
+        if len(live) >= 2:
+            i, j = sorted(rng.choice(len(live), 2, replace=False))
+            ids[b, live[j]] = ids[b, live[i]]
+        keep = ids[b][ids[b] >= 0].long()
+        visited[b, keep.clamp(0, n - 1)] = False
+    return dataclasses.replace(
+        state, beam=dataclasses.replace(state.beam, ids=ids), visited=visited)
+
+
 def tier2_to(port, tier2, dev):
     """A copy of ``tier2`` (and its cache) on ``dev``."""
     to = (lambda t: None if t is None else t.to(dev))  # noqa: E731
@@ -911,7 +955,48 @@ def check_hop_step_kernel(port, shape: Shape, dev, rng) -> dict:
                         n_cases += 1
     check(n_active >= n_cases,
           f"hop_step: {n_active} active queries over {n_cases} cases")
+    n_cases += check_hop_step_orders(port, shape, dev, rng, nbrs, shapes,
+                                     X, Qall)
     return {"hop_step": err, "hop_step_cases": n_cases}
+
+
+def check_hop_step_orders(port, shape: Shape, dev, rng, nbrs, shapes, X,
+                          Qall) -> int:
+    """B.8 against the per-op step (``torch.equal``, all nine tensors) on
+    the states its merge by counted ranks must get right and the one it
+    hands to merge_row: exact ties within the beam, among the new entries
+    and across the two (``tie_corpus``), beams out of order
+    (``shuffle_beams``) and repeated ids (``duplicate_beams``); every
+    precision, metric and layer shape, B = 32. Returns the number of
+    cases."""
+    S = port["search"]
+    Xt, Qt_np = tie_corpus(rng, shape.n, shape.dim, shape.batch)
+    n_cases = 0
+    for kind, (Xk, Qk) in (("ties", (Xt, Qt_np)), ("unsorted", (X, Qall)),
+                           ("duplicates", (X, Qall))):
+        Qt = torch.as_tensor(Qk, device=dev)
+        for precision in PRECISIONS:
+            for name, (ef, deg, cached) in shapes.items():
+                tier2 = hop_tier2(port, Xk, precision, cached, rng,
+                                  shape.cache, dev)
+                N = torch.as_tensor(nbrs[name], device=dev)
+                for metric in HOP_METRICS:
+                    st = hop_state(S, rng, Xk, Qk, nbrs[name], ef,
+                                   ef + deg + 1, ef, 100_000, metric, dev)
+                    if kind == "unsorted":
+                        st = shuffle_beams(S, st, rng)
+                    elif kind == "duplicates":
+                        st = duplicate_beams(S, st, rng)
+                    got = hop_step_args(S, *S.batch_hop_step(
+                        Qt, N, st, tier2, metric, ef))
+                    want = hop_step_args(S, *S.batch_hop_step_plain(
+                        Qt, N, st, tier2, metric, ef))
+                    check(all(x.dtype == y.dtype and torch.equal(x, y)
+                              for x, y in zip(got, want)),
+                          f"hop_step {kind} {precision} {name} {metric}: = "
+                          "the per-op step (torch.equal)")
+                    n_cases += 1
+    return n_cases
 
 
 # ------------------------------------------------------------ phase 4

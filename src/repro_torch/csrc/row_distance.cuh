@@ -17,6 +17,13 @@
 // for int8, multiplied by its row's scale with __fmul_rn, which the
 // compiler never contracts into the next add, so x equals the plain
 // version's x.float() * scale bit for bit.
+//
+// f32_rows and dequant_rows compute up to R rows at once for one query:
+// every lane issues its loads of all the rows (U of its 16-byte chunks a
+// row, or U elements, at a time) before it adds any, so the rows' reads
+// are in flight together instead of one row's after another's shuffle
+// tree. Each row's lane sums run in f32_row's / dequant_row's order and
+// end in the same finish, so each distance has their bits.
 
 #pragma once
 
@@ -31,17 +38,20 @@ constexpr unsigned kFullMask = 0xffffffffu;
 enum Metric { kL2 = 0, kIp = 1, kCos = 2 };
 enum Elem { kInt8 = 0, kHalf = 1 };
 
+// Each product is added by one fused multiply-add, written out (as the
+// compiler contracts `acc += a * b` by default), so no kernel's bits hang
+// on whether the compiler shares a product between rows (q * q) or not.
 template <int METRIC>
 __device__ __forceinline__ void accumulate(float x, float q, float& acc,
                                            float& xx, float& qq) {
   if (METRIC == kL2) {
     const float diff = x - q;
-    acc += diff * diff;
+    acc = __fmaf_rn(diff, diff, acc);
   } else {
-    acc += x * q;
+    acc = __fmaf_rn(x, q, acc);
     if (METRIC == kCos) {
-      xx += x * x;
-      qq += q * q;
+      xx = __fmaf_rn(x, x, xx);
+      qq = __fmaf_rn(q, q, qq);
     }
   }
 }
@@ -89,6 +99,75 @@ __device__ __forceinline__ float f32_row(const float* __restrict__ x,
     }
   }
   return finish<METRIC>(acc, xx, qq);
+}
+
+// f32_row for the nr <= R rows x[0..nr) (nr the same on every lane):
+// out[r] = f32_row(x[r], q, d, vec4, lane), the loads of all nr rows, U
+// chunks (or elements) a lane at a time, issued before any is summed.
+template <int METRIC, int R, int U>
+__device__ __forceinline__ void f32_rows(const float* const (&x)[R], int nr,
+                                         const float* __restrict__ q, int d,
+                                         bool vec4, int lane,
+                                         float (&out)[R]) {
+  float acc[R], xx[R], qq[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = xx[r] = qq[r] = 0.f;
+  if (vec4) {
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    const int d4 = d >> 2;
+    for (int j0 = lane; j0 < d4; j0 += 32 * U) {
+      float4 xa[U][R], qa[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < d4) {
+          qa[u] = __ldg(q4 + j);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r < nr) xa[u][r] = __ldg(reinterpret_cast<const float4*>(x[r]) + j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j0 + 32 * u < d4) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (r < nr) {
+              accumulate<METRIC>(xa[u][r].x, qa[u].x, acc[r], xx[r], qq[r]);
+              accumulate<METRIC>(xa[u][r].y, qa[u].y, acc[r], xx[r], qq[r]);
+              accumulate<METRIC>(xa[u][r].z, qa[u].z, acc[r], xx[r], qq[r]);
+              accumulate<METRIC>(xa[u][r].w, qa[u].w, acc[r], xx[r], qq[r]);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    for (int j0 = lane; j0 < d; j0 += 32 * U) {
+      float xa[U][R], qa[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < d) {
+          qa[u] = __ldg(q + j);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r < nr) xa[u][r] = __ldg(x[r] + j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j0 + 32 * u < d) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r < nr) accumulate<METRIC>(xa[u][r], qa[u], acc[r], xx[r], qq[r]);
+        }
+      }
+    }
+  }
+  // every row's shuffle tree at once (a row past nr sums zeros, unused)
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = finish<METRIC>(acc[r], xx[r], qq[r]);
 }
 
 // Storage type and widening of each quantized element kind; float16 rows
@@ -158,6 +237,95 @@ __device__ __forceinline__ float dequant_row(
     }
   }
   return finish<METRIC>(acc, xx, qq);
+}
+
+// dequant_row for the nr <= R rows x[0..nr) at their scales s[0..nr)
+// (nr the same on every lane): out[r] = dequant_row(x[r], s[r], q, d,
+// vec, lane), the loads of all nr rows, U chunks (or elements) a lane at a
+// time, issued before any is summed.
+template <int METRIC, int ELEM, int R, int U>
+__device__ __forceinline__ void dequant_rows(
+    const typename Elt<ELEM>::S* const (&x)[R], const float (&s)[R], int nr,
+    const float* __restrict__ q, int d, bool vec, int lane, float (&out)[R]) {
+  using S = typename Elt<ELEM>::S;
+  constexpr int kE = 16 / static_cast<int>(sizeof(S));
+  union Chunk {
+    int4 raw;
+    S e[kE];
+  };
+  float acc[R], xx[R], qq[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = xx[r] = qq[r] = 0.f;
+  if (vec) {
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    const int chunks = d / kE;
+    for (int j0 = lane; j0 < chunks; j0 += 32 * U) {
+      Chunk xa[U][R];
+      float4 qa[U][kE / 4];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < chunks) {
+#pragma unroll
+          for (int h = 0; h < kE / 4; ++h) qa[u][h] = __ldg(q4 + j * (kE / 4) + h);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r < nr) xa[u][r].raw = __ldg(reinterpret_cast<const int4*>(x[r]) + j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j0 + 32 * u < chunks) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (r < nr) {
+#pragma unroll
+              for (int h = 0; h < kE / 4; ++h) {
+                const float qv[4] = {qa[u][h].x, qa[u][h].y, qa[u][h].z,
+                                     qa[u][h].w};
+#pragma unroll
+                for (int t = 0; t < 4; ++t) {
+                  const float xv =
+                      __fmul_rn(Elt<ELEM>::widen(xa[u][r].e[4 * h + t]), s[r]);
+                  accumulate<METRIC>(xv, qv[t], acc[r], xx[r], qq[r]);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+  } else {
+    for (int j0 = lane; j0 < d; j0 += 32 * U) {
+      S xa[U][R];
+      float qa[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < d) {
+          qa[u] = __ldg(q + j);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r < nr) xa[u][r] = x[r][j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j0 + 32 * u < d) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (r < nr) {
+              const float xv = __fmul_rn(Elt<ELEM>::widen(xa[u][r]), s[r]);
+              accumulate<METRIC>(xv, qa[u], acc[r], xx[r], qq[r]);
+            }
+          }
+        }
+      }
+    }
+  }
+  // every row's shuffle tree at once (a row past nr sums zeros, unused)
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = finish<METRIC>(acc[r], xx[r], qq[r]);
 }
 
 // Host side: whether the 16-byte path applies to a table of row width d

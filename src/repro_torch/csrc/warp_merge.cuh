@@ -135,6 +135,16 @@ __device__ __forceinline__ bool mark_firsts_of(
   return false;  // c <= 32 * E always
 }
 
+// The key of an entry at position m: its dist's order bits above m, or
+// kNone for a sentinel (id < 0 or a non-finite dist).
+__device__ __forceinline__ unsigned long long entry_key(float v, int id,
+                                                        int m) {
+  return id >= 0 && isfinite(v)
+             ? (static_cast<unsigned long long>(order_bits(v)) << 32) |
+                   static_cast<unsigned>(m)
+             : kNone;
+}
+
 // The k smallest of the row (d_in, id_in) of M <= 32 * E candidates as
 // (od, oi, os), each k long: dist, id and input position of each winner,
 // in (dist, position) order, one copy of each id. The whole warp calls
@@ -156,9 +166,7 @@ __device__ __forceinline__ void merge_row(const float* d_in,
       const int id = id_in[m];
       sm.d[m] = v;
       sm.id[m] = id;
-      if (id >= 0 && isfinite(v))
-        key[j] = (static_cast<unsigned long long>(order_bits(v)) << 32) |
-                 static_cast<unsigned>(m);
+      key[j] = entry_key(v, id, m);
     }
   }
   warp_sort<E>(key, lane);

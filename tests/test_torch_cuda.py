@@ -1035,38 +1035,61 @@ def test_a_failed_capture_raises(cuda):
 # ------------------------------------------------ the hop-step kernel (B.8)
 
 HOP_N, HOP_D = 600, 64
+HOP_WIDE_N = 60_000  # a visited row of 60,001 bytes, past a block's 48 KB
+HOP_WIDE_CACHE = 2_000  # its tier 2: most fresh neighbours miss
 HOP_PORT = {"search": S, "store": PS, "quant": quant}
+# the beams a step starts from: chip_smoke.hop_state's (sorted, as every
+# step, seed and load phase leaves them), the same over tie_corpus (exact
+# ties within the beam, among the new entries and across the two),
+# shuffled (out of order), and with repeated ids (B.8's merge_row path)
+HOP_BEAMS = ["random", "ties", "unsorted", "duplicates"]
 
 
 @pytest.fixture(scope="module")
 def hop_data():
     """Corpus, queries, neighbour rows and tier 2s on the card (or a
-    skip, decided when a test runs)."""
+    skip, decided when a test runs), by width d or "wide" (a 60,000-node
+    graph at HOP_D), and as ("ties", d) over ``chip_smoke.tie_corpus``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
     rng = np.random.default_rng(8)
     out = {}
-    for d in (HOP_D, 30):  # 16-byte loads, element loads
-        X = rng.standard_normal((HOP_N, d)).astype(np.float32)
-        tier2 = {(p, c): cs.hop_tier2(HOP_PORT, X, p, c, rng, HOP_N // 3, dev)
+
+    def entry(X, Q, n, degs, capacity):
+        tier2 = {(p, c): cs.hop_tier2(HOP_PORT, X, p, c, rng, capacity, dev)
                  for p in ("float32", "int8", "float16")
                  for c in (False, True)}
-        out[d] = (X, cs.make_queries(X, 32, seed=4),
-                  {deg: cs.hop_neighbors(rng, HOP_N, deg)
-                   for deg in (16, 32, 128, 192)}, tier2)
+        return X, Q, {deg: cs.hop_neighbors(rng, n, deg) for deg in degs}, \
+            tier2
+
+    for d in (HOP_D, 30):  # 16-byte loads, element loads
+        X = rng.standard_normal((HOP_N, d)).astype(np.float32)
+        out[d] = entry(X, cs.make_queries(X, 200, seed=4), HOP_N,
+                       (16, 32, 128, 192), HOP_N // 3)
+        out[("ties", d)] = entry(*cs.tie_corpus(rng, HOP_N, d, 200), HOP_N,
+                                 (16, 32, 128, 192), HOP_N // 3)
+    X = rng.standard_normal((HOP_WIDE_N, HOP_D)).astype(np.float32)
+    out["wide"] = entry(X, cs.make_queries(X, 32, seed=4), HOP_WIDE_N, (32,),
+                        HOP_WIDE_CACHE)
+    out[("ties", "wide")] = entry(*cs.tie_corpus(rng, HOP_WIDE_N, HOP_D, 32),
+                                  HOP_WIDE_N, (32,), HOP_WIDE_CACHE)
     return out
 
 
 def _hop_pair(hop_data, d, precision, metric, B, gate, ef, deg, cached,
-              seed):
-    """B.8 and the per-op step on one random mid-search state: the two
-    steps' nine tensors, and B.8's launches in between."""
-    X, Qn, nbrs_np, tier2s = hop_data[d]
+              seed, beam="random"):
+    """B.8 and the per-op step on one mid-search state (of ``beam``'s
+    kind): the two steps' nine tensors, and B.8's launches in between."""
+    X, Qn, nbrs_np, tier2s = hop_data[("ties", d) if beam == "ties" else d]
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     state = cs.hop_state(S, rng, X, Qn[:B], nbrs_np[deg], ef, ef + deg + 1,
                          ef, 100_000, metric, dev)
+    if beam == "unsorted":
+        state = cs.shuffle_beams(S, state, rng)
+    elif beam == "duplicates":
+        state = cs.duplicate_beams(S, state, rng)
     g = None
     if gate:
         g = (torch.tensor(True, device=dev) if B == 1 else
@@ -1083,6 +1106,7 @@ def _hop_pair(hop_data, d, precision, metric, B, gate, ef, deg, cached,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("beam", HOP_BEAMS)
 @pytest.mark.parametrize("cached", [False, True])
 @pytest.mark.parametrize("deg", [16, 32])
 @pytest.mark.parametrize("ef", [1, 10, 64])
@@ -1091,28 +1115,37 @@ def _hop_pair(hop_data, d, precision, metric, B, gate, ef, deg, cached,
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("precision", ["float32", "int8", "float16"])
 def test_hop_step_kernel_equals_per_op_step(hop_data, precision, metric, B,
-                                            gate, ef, deg, cached):
+                                            gate, ef, deg, cached, beam):
     """B.8 against the per-op step (B.1 or B.3, then B.2, around PyTorch
-    ops) on the same state: every output tensor equal (torch.equal)."""
+    ops) on the same state: every output tensor equal (torch.equal), from
+    sorted beams, beams with exact ties and beams out of order (B.8's
+    merge by counted ranks) and beams with repeated ids (its merge_row
+    path)."""
     got, want, n = _hop_pair(hop_data, HOP_D, precision, metric, B, gate,
-                             ef, deg, cached, ef * 100 + deg)
+                             ef, deg, cached, ef * 100 + deg, beam)
     assert n == 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(30, 10, 32), (HOP_D, 64, 192),
-                                   (HOP_D, 128, 128)])
+@pytest.mark.parametrize("beam", HOP_BEAMS)
+@pytest.mark.parametrize("shape", [(30, 10, 32, 32), (HOP_D, 64, 192, 32),
+                                   (HOP_D, 128, 128, 32),
+                                   (HOP_D, 64, 32, 200),
+                                   ("wide", 64, 32, 32)])
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("precision", ["float32", "int8", "float16"])
-def test_hop_step_kernel_at_other_widths(hop_data, precision, metric, shape):
-    """Element loads (d = 30) and merge rows of 256 (the largest the
-    kernel takes, its widest warp sort) and of neighbour rows wider than
-    a warp: still the per-op step's bits."""
-    d, ef, deg = shape
-    got, want, n = _hop_pair(hop_data, d, precision, metric, 32, True, ef,
-                             deg, True, 5)
+def test_hop_step_kernel_at_other_widths(hop_data, precision, metric, shape,
+                                         beam):
+    """Element loads (d = 30), merge rows of 256 (the largest the kernel
+    takes, its widest warp sort) and of neighbour rows wider than a warp,
+    B = 200 (more blocks than SMs) and a 60,000-node graph (visited rows
+    of 60,001 bytes): still the per-op step's bits, from sorted, tied,
+    shuffled and repeating beams."""
+    d, ef, deg, B = shape
+    got, want, n = _hop_pair(hop_data, d, precision, metric, B, True, ef,
+                             deg, True, 5, beam)
     assert n == 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)

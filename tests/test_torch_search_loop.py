@@ -21,7 +21,10 @@ here, all bit for bit:
   and LRU, at float32, float16, int8 and pq, and an insert that is not
   enabled changes nothing;
 - the fused driver's device counters equal the JAX package's ``n_db``
-  and ``n_fetch``.
+  and ``n_fetch``;
+- every beam that the seed, a hop step, a load phase, the fused driver's
+  masked step or a short search of each driver leaves is sorted by
+  (dist, position), sentinels last.
 """
 
 import dataclasses
@@ -469,3 +472,93 @@ def test_inactive_queries_are_left_untouched(index):
     nxt, active = S.batch_hop_step(Q[:4], nbrs[0], s, tier2, "l2", 0)
     assert not bool(active.any())
     _assert_same_state(nxt, s)
+
+
+# ---------------------------------------- the order every beam is kept in
+
+INF = float("inf")
+
+
+def _assert_sorted_beams(beam):
+    """Each beam sorted by (dist, position): its valid entries (id >= 0,
+    finite dist) first, their dists ascending, then sentinels (-1, +inf)
+    only: the order merge_row gives every beam it writes, which a merge
+    of the beam with a step's new entries may start from (B.8's merge
+    ranks every entry by counting, so it is also held to the per-op step
+    on beams out of this order, in the card tests)."""
+    ef = beam.ids.shape[-1]
+    ids, d = beam.ids.reshape(-1, ef), beam.dists.reshape(-1, ef)
+    valid = (ids >= 0) & torch.isfinite(d)
+    n_valid = valid.sum(-1, keepdim=True)
+    assert torch.equal(valid, torch.arange(ef) < n_valid)
+    assert bool(((ids == -1) & (d == INF))[~valid].all())
+    dv = torch.where(valid, d, INF)
+    assert bool((dv[:, 1:] >= dv[:, :-1]).all())
+
+
+def _watch(monkeypatch, names, seen):
+    """Wrap each search function in ``names`` so that every state it
+    returns has its beams checked; ``seen`` counts the checks."""
+    for name in names:
+        fn = getattr(S, name)
+
+        def checked(*args, _fn=fn, _name=name, **kwargs):
+            out = _fn(*args, **kwargs)
+            state = out[0] if isinstance(out, tuple) else out
+            _assert_sorted_beams(state.beam)
+            seen[_name] = seen.get(_name, 0) + 1
+            return out
+
+        monkeypatch.setattr(S, name, checked)
+
+
+BEAM_ORDER_CASES = [
+    "seed_state", "hop_step_plain", "load_phase",
+    "fused_step_float32", "fused_step_int8", "fused_step_float16",
+    "driver_loop", "driver_batched", "driver_fused",
+]
+
+
+@pytest.mark.parametrize("case", BEAM_ORDER_CASES)
+def test_every_beam_stays_sorted_by_key(index, monkeypatch, case):
+    """After ``batch_seed_state``, ``batch_hop_step_plain`` and
+    ``batch_load_phase``, after the fused driver's masked step at
+    float32, int8 and float16, and through a short search of each driver,
+    every beam is sorted by (dist, position) with sentinels (-1, +inf)
+    only at its tail, on the CPU plain path."""
+    X, g, nbrs, Q = index
+    seen = {}
+    if case in ("seed_state", "hop_step_plain", "load_phase"):
+        name = {"seed_state": "batch_seed_state",
+                "hop_step_plain": "batch_hop_step_plain",
+                "load_phase": "batch_load_phase"}[case]
+        _watch(monkeypatch, [name], seen)
+        for B in (1, 32):
+            _layer_trace(index, B, "float32", _k_phase)
+    elif case.startswith("fused_step_"):
+        _watch(monkeypatch, ["_where_state"], seen)
+        store, payload, scales = _fused_setup(index, case[len("fused_step_"):],
+                                              "fifo")
+        entry = torch.tensor([int(g.entry_point)], dtype=torch.int32)
+        cache = store.cache
+        for q in Q[:4]:
+            _, cache, _, _ = S.search_layer_lazy_fused_eager(
+                q, nbrs[0], payload, scales, cache, entry, EF, "l2",
+                eviction=store.eviction)
+    else:
+        mode = case[len("driver_"):]
+        watched = ["batch_seed_state", "batch_hop_step_plain",
+                   "batch_load_phase"] + (["_where_state"] if mode == "fused"
+                                          else [])
+        _watch(monkeypatch, watched, seen)
+        eng = P.WebANNSEngine(X, g, P.EngineConfig(
+            device="cpu", cache_capacity=N // 4, ef_search=EF,
+            fused=mode == "fused"))
+        Qn = Q[:8].numpy()
+        if mode == "batched":
+            eng.search(P.SearchRequest(query=Qn, k=5, batch_mode="batched"))
+        else:
+            eng.search(P.SearchRequest(query=Qn, k=5, batch_mode="loop"))
+    assert seen and all(n > 0 for n in seen.values()), seen
+    if case.startswith("driver_"):
+        assert set(seen) == set(watched), seen
