@@ -30,7 +30,9 @@ the script exits non-zero:
    (ef 1, degree 16, the whole table), with and without a gate: equal
    to the per-op step on the card (``torch.equal``, all nine tensors)
    and to the plain version on the CPU (the beams within the gather
-   kernels' tolerance, up to near ties; the rest exactly);
+   kernels' tolerance, up to near ties; the rest exactly); and to the
+   per-op step on states with exact ties (``tie_corpus``), beams out of
+   order (``shuffle_beams``) and repeated ids (``duplicate_beams``);
 4. the query paths, on one N = 10,000, d = 768 corpus and one HNSW graph
    at the paper's widths (M = 16, ef_construction = 200), each on fresh
    engines on the card with a cold 25% tier 2 and its launch counts set
@@ -818,7 +820,7 @@ def tie_corpus(rng, n: int, dim: int, n_queries: int):
 def shuffle_beams(S, state, rng):
     """``state`` with each beam's entries (id, dist, explored together) in
     a random order, sentinels among them: beams out of (dist, position)
-    order, which B.8 merges by its full sort."""
+    order, for which B.8 ranks the whole merge row."""
     B, ef = state.beam.ids.shape
     perm = torch.as_tensor(np.argsort(rng.random((B, ef)), axis=1),
                            device=state.beam.ids.device)

@@ -69,13 +69,16 @@
 //    each row's id_of check read beside it: present = the check holds.
 //  - Step 8 sorts nothing: the merge row has at most 256 entries, one a
 //    thread, and each thread ranks its entry's (dist, position) key by
-//    counting the row's smaller keys from shared memory, flagging it where
-//    a smaller key has its id. Without a flagged winner (ids distinct, as
-//    on every row the search sends) the ranks are merge_row's order, and
-//    each winner writes itself at its rank; with one, warp 0 runs
-//    merge_row (warp_merge.cuh, B.2's code) and its dedup. A single
-//    warp's sorting network was half of the step (PERF.md). Warp 1 then
-//    appends the misses and writes the counters.
+//    counting smaller keys in shared memory. A beam in key order, as
+//    every step, seed and load phase leaves it, needs only the new keys
+//    counted (a beam entry's rank in the beam is its position, a new
+//    entry's a binary search); a beam out of order has the whole row
+//    counted. Warps 1-7 key the beam and check its order after their
+//    copy, off the chain. A hash set of the winners' ids in shared
+//    memory finds a repeated id; a row with one takes merge_row
+//    (warp_merge.cuh, B.2's code) on warp 0, its dedup included. One
+//    warp sorting the same row takes about half of a step (PERF.md §6).
+//    Warp 1 then appends the misses and writes the counters.
 // There is no host sync and no allocation, so a CUDA graph captures the
 // launch like any other.
 //

@@ -18,12 +18,12 @@
 // compiler never contracts into the next add, so x equals the plain
 // version's x.float() * scale bit for bit.
 //
-// f32_rows and dequant_rows compute up to R rows at once for one query:
-// every lane issues its loads of all the rows (U of its 16-byte chunks a
-// row, or U elements, at a time) before it adds any, so the rows' reads
-// are in flight together instead of one row's after another's shuffle
-// tree. Each row's lane sums run in f32_row's / dequant_row's order and
-// end in the same finish, so each distance has their bits.
+// f32_rows and dequant_rows compute up to R rows at once for one query
+// (the hop step's), f32_row and dequant_row one (the gather kernels'):
+// one code, so a row's distance has the same bits either way. Every lane
+// issues its loads of all the rows (U of its 16-byte chunks a row, or U
+// elements, at a time) before it adds any, so the rows' reads are in
+// flight together instead of one row's after another's shuffle tree.
 
 #pragma once
 
@@ -74,36 +74,11 @@ __device__ __forceinline__ float finish(float acc, float xx, float qq) {
   return -acc / ((sqrtf(xx) + 1e-30f) * (sqrtf(qq) + 1e-30f));
 }
 
-// Distance of the float32 row x to the query q, d elements; the whole
-// warp calls it. vec4: d % 4 == 0 and both rows 16-byte aligned.
-template <int METRIC>
-__device__ __forceinline__ float f32_row(const float* __restrict__ x,
-                                         const float* __restrict__ q, int d,
-                                         bool vec4, int lane) {
-  float acc = 0.f, xx = 0.f, qq = 0.f;
-  if (vec4) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    const int d4 = d >> 2;
-    for (int j = lane; j < d4; j += 32) {
-      const float4 a = __ldg(x4 + j);
-      const float4 c = __ldg(q4 + j);
-      accumulate<METRIC>(a.x, c.x, acc, xx, qq);
-      accumulate<METRIC>(a.y, c.y, acc, xx, qq);
-      accumulate<METRIC>(a.z, c.z, acc, xx, qq);
-      accumulate<METRIC>(a.w, c.w, acc, xx, qq);
-    }
-  } else {
-    for (int j = lane; j < d; j += 32) {
-      accumulate<METRIC>(__ldg(x + j), __ldg(q + j), acc, xx, qq);
-    }
-  }
-  return finish<METRIC>(acc, xx, qq);
-}
-
-// f32_row for the nr <= R rows x[0..nr) (nr the same on every lane):
-// out[r] = f32_row(x[r], q, d, vec4, lane), the loads of all nr rows, U
-// chunks (or elements) a lane at a time, issued before any is summed.
+// Distances of the nr <= R float32 rows x[0..nr) to the query q, d
+// elements each (nr the same on every lane), into out[0..nr); the whole
+// warp calls it. vec4: d % 4 == 0 and every row and q 16-byte aligned.
+// The loads of all nr rows, U chunks (or elements) a lane at a time, are
+// issued before any is summed.
 template <int METRIC, int R, int U>
 __device__ __forceinline__ void f32_rows(const float* const (&x)[R], int nr,
                                          const float* __restrict__ q, int d,
@@ -170,6 +145,16 @@ __device__ __forceinline__ void f32_rows(const float* const (&x)[R], int nr,
   for (int r = 0; r < R; ++r) out[r] = finish<METRIC>(acc[r], xx[r], qq[r]);
 }
 
+// Distance of the float32 row x to the query q: f32_rows of one row.
+template <int METRIC>
+__device__ __forceinline__ float f32_row(const float* x, const float* q,
+                                         int d, bool vec4, int lane) {
+  const float* const rows[1] = {x};
+  float out[1];
+  f32_rows<METRIC, 1, 1>(rows, 1, q, d, vec4, lane, out);
+  return out[0];
+}
+
 // Storage type and widening of each quantized element kind; float16 rows
 // are read as their raw 16 bits, so the 16-byte union below holds only
 // plain types.
@@ -199,50 +184,10 @@ __device__ __forceinline__ float row_scale(const float* __restrict__ scales,
   return __shfl_sync(kFullMask, s, 0);
 }
 
-// Distance of the quantized row x (times the scale s) to the query q;
-// the whole warp calls it. vec: d a multiple of the elements in 16 bytes
-// and both rows 16-byte aligned.
-template <int METRIC, int ELEM>
-__device__ __forceinline__ float dequant_row(
-    const typename Elt<ELEM>::S* __restrict__ x, float s,
-    const float* __restrict__ q, int d, bool vec, int lane) {
-  using S = typename Elt<ELEM>::S;
-  constexpr int kE = 16 / static_cast<int>(sizeof(S));
-  float acc = 0.f, xx = 0.f, qq = 0.f;
-  if (vec) {
-    const int4* x16 = reinterpret_cast<const int4*>(x);
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    const int chunks = d / kE;
-    for (int j = lane; j < chunks; j += 32) {
-      union {
-        int4 raw;
-        S e[kE];
-      } u;
-      u.raw = __ldg(x16 + j);
-#pragma unroll
-      for (int h = 0; h < kE / 4; ++h) {
-        const float4 c = __ldg(q4 + j * (kE / 4) + h);
-        const float qv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float xv = __fmul_rn(Elt<ELEM>::widen(u.e[4 * h + t]), s);
-          accumulate<METRIC>(xv, qv[t], acc, xx, qq);
-        }
-      }
-    }
-  } else {
-    for (int j = lane; j < d; j += 32) {
-      const float xv = __fmul_rn(Elt<ELEM>::widen(x[j]), s);
-      accumulate<METRIC>(xv, __ldg(q + j), acc, xx, qq);
-    }
-  }
-  return finish<METRIC>(acc, xx, qq);
-}
-
-// dequant_row for the nr <= R rows x[0..nr) at their scales s[0..nr)
-// (nr the same on every lane): out[r] = dequant_row(x[r], s[r], q, d,
-// vec, lane), the loads of all nr rows, U chunks (or elements) a lane at a
-// time, issued before any is summed.
+// Distances of the nr <= R quantized rows x[0..nr) (each times its scale
+// s[r]) to the query q, as f32_rows does (nr the same on every lane);
+// vec: d a multiple of the elements in 16 bytes and every row and q
+// 16-byte aligned.
 template <int METRIC, int ELEM, int R, int U>
 __device__ __forceinline__ void dequant_rows(
     const typename Elt<ELEM>::S* const (&x)[R], const float (&s)[R], int nr,
@@ -326,6 +271,19 @@ __device__ __forceinline__ void dequant_rows(
   // every row's shuffle tree at once (a row past nr sums zeros, unused)
 #pragma unroll
   for (int r = 0; r < R; ++r) out[r] = finish<METRIC>(acc[r], xx[r], qq[r]);
+}
+
+// Distance of the quantized row x (times the scale s) to the query q:
+// dequant_rows of one row.
+template <int METRIC, int ELEM>
+__device__ __forceinline__ float dequant_row(const typename Elt<ELEM>::S* x,
+                                             float s, const float* q, int d,
+                                             bool vec, int lane) {
+  const typename Elt<ELEM>::S* const rows[1] = {x};
+  const float scale[1] = {s};
+  float out[1];
+  dequant_rows<METRIC, ELEM, 1, 1>(rows, scale, 1, q, d, vec, lane, out);
+  return out[0];
 }
 
 // Host side: whether the 16-byte path applies to a table of row width d
