@@ -87,6 +87,27 @@ the script exits non-zero:
    accesses, items fetched, redundancy, recall@10 and p50/p99 of 8
    queries after a warm one, MeMemo's redundancy above 0.5 and
    WebANNS's 0, WebANNS's accesses below MeMemo's;
+   then persistence (phase 4f), on the same corpus, graph and queries,
+   with the launch counts set to 0 just before it and read just after:
+   each precision's phase-4 engine saves its index (``save``) into a
+   directory under ``build/`` that the phase deletes, checked for the
+   payload's bytes from the shapes (4d a row at float32, 2d at float16,
+   d + 4 at int8, 192 at pq beside a 786,432-byte codebook); engines
+   opened on it with the default device (``WebANNSEngine.open``) serve
+   the single, ``loop``, ``batched`` and fused requests from a cold tier
+   2, tier 3 read from the mmap'd shard files (``shard_reads``); at
+   float32 they equal the in-memory card engines bit for bit, ``n_db``
+   and ``items_fetched`` too, and a reopened engine's batched p50 is
+   timed beside an in-memory one's (10 batches of 32 each, host clock);
+   at int8, float16 and pq they are held to CPU engines opened on the
+   same directory (ids in ``MIN_AGREEMENT`` of the positions, ``n_db``
+   equal; the batch in ``batched`` mode, the first
+   ``PERSIST_CPU_QUERIES`` queries in the loop and fused drivers), with
+   recall@10 beside the in-memory session's; then a seeded 5% of the
+   float32 artifact's rows and its entry point are tombstoned on disk
+   (``storage.save_tombstones``) and the artifact reopened: the entry
+   point moves to a live node and no driver returns a tombstoned id, on
+   the card and on the CPU, the two held to each other as above;
    then the distributed substrate at world size 1 over NCCL: the flat
    scan (``distributed_brute_force``, k = 10, l2) over the paper's own
    480,000 x 768 corpus, checked for recall@10 >= 0.999 against brute
@@ -139,6 +160,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -226,6 +248,7 @@ def load_port():
     from repro_torch.core import search, step_graph, store
     from repro_torch.core.eval import brute_force_topk, recall_at_k
     from repro_torch.core.hnsw import build_hnsw
+    from repro_torch.core import index, storage
     from repro_torch.core.storage import InMemoryBackend
     from repro_torch.data.synthetic import corpus_embeddings
     from repro_torch.core import distributed
@@ -249,7 +272,7 @@ def load_port():
         distributed=distributed, mesh=mesh, topk_max_k=TOPK_MAX_K,
         configs=configs, click_batches=click_batches, embeddings=embeddings,
         recsys=recsys, search=search, step_graph=step_graph, store=store,
-        cache_opt=cache_opt, mememo=mememo,
+        cache_opt=cache_opt, mememo=mememo, storage=storage, index=index,
     )
 
 
@@ -1767,6 +1790,284 @@ def run_cache_sizing(port, shape: Shape, X, graph, codebook) -> dict:
     return out
 
 
+# ----------------------------------------------------------- phase 4f
+
+PERSIST_PRECISIONS = ("float32", "int8", "float16", "pq")
+PERSIST_DRIVERS = ("single", "loop", "batched", "fused")
+# the CPU engines a lossy artifact's card engines are held to serve the
+# batch in `batched` mode and its first PERSIST_CPU_QUERIES queries in
+# the loop and fused drivers: those serve a batch one query after
+# another, so their first rows are the card's first rows (the CPU's
+# d = 768 hops are what the phase's time goes to)
+PERSIST_CPU_QUERIES = 4
+TOMBSTONE_FRAC, TOMBSTONE_SEED = 0.05, 17
+PERSIST_TIMED_BATCHES = 10
+# a .npy file is its array's bytes behind a header of this many at most
+NPY_HEADER_MAX = 4096
+
+
+def persist_config(port, shape: Shape, precision: str, fused: bool,
+                   device=None):
+    """The query path's engine config at ``precision``; ``device=None``
+    is the entry point's default, the card."""
+    extra = {} if device is None else {"device": device}
+    if precision == "pq":
+        extra.update(pq_subspaces=PQ_SUBSPACES, rerank_alpha=PQ_ALPHA)
+    return port["engine"].EngineConfig(
+        cache_capacity=shape.cache, ef_search=shape.ef, precision=precision,
+        fused=fused, **extra)
+
+
+def artifact_payload(path: str) -> dict:
+    """The vector payload's bytes as the saved shard arrays hold them
+    (vectors or codes, int8 scales) and the files' sizes around them."""
+    man = json.loads((Path(path) / "manifest.json").read_text())
+    names = [sh[key] for sh in man["vector_shards"]
+             for key in ("file", "scales_file") if key in sh]
+    return {"arrays": sum(np.load(Path(path) / f, mmap_mode="r").nbytes
+                          for f in names),
+            "files": sum((Path(path) / f).stat().st_size for f in names),
+            "n_files": len(names)}
+
+
+def serve_opened(port, shape: Shape, path: str, precision: str, Q,
+                 device=None, n_one_by_one=None) -> dict:
+    """Each driver's request on a fresh engine opened on ``path`` (a cold
+    tier 2), as phase 4 serves them; the loop and fused drivers on the
+    first ``n_one_by_one`` queries where given. Records each open's
+    seconds and the shard reads each search made."""
+    E = port["engine"]
+    out = {"open_s": {}, "shard_reads": {}, "engines": {}}
+    for name in PERSIST_DRIVERS:
+        first, mode = REQUEST_FORMS[name]
+        q = Q if first is None else Q[first]
+        if n_one_by_one is not None and name in ("loop", "fused"):
+            q = Q[:n_one_by_one]
+        t0 = time.perf_counter()
+        eng = E.WebANNSEngine.open(path, persist_config(
+            port, shape, precision, name == "fused", device))
+        out["open_s"][name] = time.perf_counter() - t0
+        reads = eng.external.base_backend.shard_reads
+        out[name] = eng.search(E.SearchRequest(query=q, k=shape.k,
+                                               batch_mode=mode))
+        out["shard_reads"][name] = \
+            eng.external.base_backend.shard_reads - reads
+        out["engines"][name] = eng
+    return out
+
+
+def _rows(res, n=None) -> list:
+    """Per-query (ids, dists, n_db, items_fetched) of a result."""
+    stats = res.stats if isinstance(res.stats, list) else [res.stats]
+    ids, dists = np.atleast_2d(res.ids), np.atleast_2d(res.dists)
+    return [(ids[i], dists[i], s.n_db, s.items_fetched)
+            for i, s in enumerate(stats)][:n]
+
+
+def check_opened_results(port, shape: Shape, X, Q, served, what) -> dict:
+    """Shape, finite distances, ids in range, tier 3 read from the
+    files, and recall@10 of each driver of an opened artifact."""
+    truth = port["brute_force_topk"](X, Q, shape.k)
+    out = {}
+    for name in PERSIST_DRIVERS:
+        res = served[name]
+        ids = np.atleast_2d(res.ids)
+        check(ids.shape == ((1 if name == "single" else shape.batch),
+                            shape.k)
+              and bool(np.isfinite(res.dists).all())
+              and bool(((ids >= 0) & (ids < shape.n)).all()),
+              f"{what}, {name}: shape, finite distances, ids in range")
+        check(served["shard_reads"][name] > 0,
+              f"{what}, {name}: tier 3 read from the shard files "
+              f"({served['shard_reads'][name]} reads)")
+        if name != "single":
+            out[f"recall_at_10_{name}"] = port["recall_at_k"](res.ids, truth)
+    return out
+
+
+def hold_to_cpu(card, cpu, what: str, n_one_by_one: int) -> dict:
+    """Card engines against CPU engines on one directory: ids equal but
+    for near ties (MIN_AGREEMENT of the positions, as phase 4 holds a
+    quantized path), every query's ``n_db`` equal."""
+    out = {}
+    for name in PERSIST_DRIVERS:
+        n = n_one_by_one if name in ("loop", "fused") else None
+        a, b = _rows(card[name], n), _rows(cpu[name], n)
+        check(len(a) == len(b), f"{what}, {name}: as many queries")
+        agree = _agreement(np.stack([r[0] for r in a]),
+                           np.stack([r[0] for r in b]))
+        out[f"cpu_agreement_{name}"] = agree
+        check(agree >= MIN_AGREEMENT,
+              f"{what}, {name}: ids agree with the CPU engine: {agree}")
+        check([r[2] for r in a] == [r[2] for r in b],
+              f"{what}, {name}: n_db equals the CPU engine's "
+              f"({[r[2] for r in a]} against {[r[2] for r in b]})")
+    return out
+
+
+def run_persistence(port, shape: Shape, X, Q, runs: dict) -> dict:
+    """Phase 4f: each phase-4 engine saves its index at its precision into
+    a directory under build/ (deleted at the end), and engines opened on
+    it with the default device serve phase 4's requests from a cold tier
+    2, tier 3 read lazily from the mmap'd shards. At float32 they equal
+    the in-memory card engines bit for bit; the lossy artifacts' card
+    engines are held to CPU engines opened on the same directory. Then a
+    seeded 5% of the float32 artifact's rows, its entry point among
+    them, are tombstoned on disk and the artifact reopened."""
+    out = {"card": device_line()}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="persist_",
+                                     dir=ROOT / "build") as root:
+        paths = {}
+        for precision in PERSIST_PRECISIONS:
+            t_phase = time.perf_counter()
+            o = out[precision] = {}
+            src = runs[precision]["engines"]["batched"]
+            path = paths[precision] = str(Path(root) / precision)
+            t0 = time.perf_counter()
+            info = src.save(path, precision=precision)
+            o["save_s"] = time.perf_counter() - t0
+            check(info["mode"] == "full", f"{precision}: a full save")
+            o["bytes_written"] = info["bytes_written"]
+            pay = artifact_payload(path)
+            want = shape.n * port["quant"].bytes_per_vector(
+                shape.dim, precision, n_subspaces=PQ_SUBSPACES)
+            check(pay["arrays"] == want
+                  and 0 < pay["files"] - pay["arrays"]
+                  <= NPY_HEADER_MAX * pay["n_files"],
+                  f"{precision}: the payload is {want} bytes from the shapes "
+                  f"({pay})")
+            o["payload_bytes"] = pay["arrays"]
+            if precision == "pq":
+                cb = port["pq"].PQCodebook.load(str(Path(path)
+                                                    / "codebook.npz"))
+                o["codebook_bytes"] = cb.nbytes()
+                check(o["codebook_bytes"] == PQ_SUBSPACES * 256
+                      * (shape.dim // PQ_SUBSPACES) * 4
+                      and np.array_equal(cb.centroids,
+                                         src.pq_codebook.centroids),
+                      f"pq: the saved codebook is the session's "
+                      f"({o['codebook_bytes']} bytes)")
+            check(o["bytes_written"] > o["payload_bytes"],
+                  f"{precision}: the graph shards come on top")
+            t0 = time.perf_counter()
+            port["index"].Index.load(path)
+            o["index_load_s"] = time.perf_counter() - t0
+            served = serve_opened(port, shape, path, precision, Q)
+            o["open_s"] = served["open_s"]
+            o["shard_reads"] = served["shard_reads"]
+            check(all(e.device.type == "cuda"
+                      for e in served["engines"].values()),
+                  f"{precision}: opened on the card by default")
+            o.update(check_opened_results(port, shape, X, Q, served,
+                                          f"reopened {precision}"))
+            mem = runs[precision]
+            truth = port["brute_force_topk"](X, Q, shape.k)
+            for name in ("batched", "loop"):
+                o[f"in_memory_recall_at_10_{name}"] = port["recall_at_k"](
+                    mem[name].ids, truth)
+            fused_mem = (runs["pq"]["fused"] if precision == "pq"
+                         else runs[f"fused_{precision}"]["fused"])
+            o["in_memory_recall_at_10_fused"] = port["recall_at_k"](
+                fused_mem.ids, truth)
+            if precision == "float32":
+                for name in PERSIST_DRIVERS:
+                    want_res = (fused_mem if name == "fused"
+                                else mem[name])
+                    got = served[name]
+                    check(np.array_equal(got.ids, want_res.ids)
+                          and np.array_equal(got.dists, want_res.dists),
+                          f"reopened float32, {name}: ids and dists equal "
+                          "the in-memory card engine's")
+                    check([r[2:] for r in _rows(got)]
+                          == [r[2:] for r in _rows(want_res)],
+                          f"reopened float32, {name}: n_db and "
+                          "items_fetched equal the in-memory engine's")
+                o["equal_to_in_memory"] = True
+                o["batched_p50"] = reopened_p50(port, shape, X, src, path)
+            else:
+                # recall against the rows the artifact stores, which its
+                # tier 3 serves and its exact rerank scores
+                stored = port["brute_force_topk"](
+                    served["engines"]["batched"].external.base_backend
+                    .fetch(np.arange(shape.n)), Q, shape.k)
+                for name in ("batched", "loop", "fused"):
+                    o[f"recall_at_10_vs_stored_{name}"] = \
+                        port["recall_at_k"](served[name].ids, stored)
+                cpu = serve_opened(port, shape, path, precision, Q, "cpu",
+                                   PERSIST_CPU_QUERIES)
+                o.update(hold_to_cpu(served, cpu, f"reopened {precision}",
+                                     PERSIST_CPU_QUERIES))
+            o["n_db"] = {name: (served[name].batch_stats.n_db
+                                if name != "single"
+                                else served[name].stats.n_db)
+                         for name in PERSIST_DRIVERS}
+            o["s"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        out["tombstones"] = run_tombstones(port, shape, X, Q,
+                                           paths["float32"])
+        out["tombstones"]["s"] = time.perf_counter() - t0
+    check(not any(Path(ROOT / "build").glob("persist_*")),
+          "the phase's directory is gone")
+    return out
+
+
+def reopened_p50(port, shape: Shape, X, mem_src, path: str) -> dict:
+    """Batched p50 of a reopened float32 engine beside an in-memory one
+    (fresh engines, one warm-up batch each, then PERSIST_TIMED_BATCHES
+    batches each in two turns: in-memory, reopened, reopened,
+    in-memory; host clock, results on the host)."""
+    E = port["engine"]
+    cfg = persist_config(port, shape, "float32", False)
+    engines = {"in_memory": E.WebANNSEngine(X, mem_src.graph, cfg),
+               "reopened": E.WebANNSEngine.open(path, cfg)}
+    lat = {name: [] for name in engines}
+    for name, eng in engines.items():
+        _timed_searches(port, shape, X, eng, "batched", 1, seed=90)
+    half = PERSIST_TIMED_BATCHES // 2
+    for turn, name in enumerate(("in_memory", "reopened", "reopened",
+                                 "in_memory")):
+        lat[name] += _timed_searches(port, shape, X, engines[name],
+                                     "batched", half, seed=300 + 10 * turn)[0]
+    return {name: _latency(v) for name, v in lat.items()}
+
+
+def run_tombstones(port, shape: Shape, X, Q, path: str) -> dict:
+    """A seeded TOMBSTONE_FRAC of the float32 artifact's rows, its entry
+    point among them, tombstoned on disk with the port's own
+    ``save_tombstones`` and ``update_manifest``; the artifact reopened on
+    the card and on the CPU."""
+    st = port["storage"]
+    man = json.loads((Path(path) / "manifest.json").read_text())
+    entry = int(man["entry_point"])
+    rng = np.random.default_rng(TOMBSTONE_SEED)
+    mask = np.zeros(shape.n, bool)
+    mask[rng.choice(shape.n, int(TOMBSTONE_FRAC * shape.n),
+                    replace=False)] = True
+    mask[entry] = True
+    st.save_tombstones(path, mask)
+    st.update_manifest(path, {"mutation_epoch": 1})
+    card = serve_opened(port, shape, path, "float32", Q)
+    cpu = serve_opened(port, shape, path, "float32", Q, "cpu",
+                       PERSIST_CPU_QUERIES)
+    out = {"tombstoned": int(mask.sum()), "old_entry": entry}
+    for where, served in (("card", card), ("cpu", cpu)):
+        for name in PERSIST_DRIVERS:
+            eng = served["engines"][name]
+            ids = np.asarray(served[name].ids)
+            check(eng.n_live == shape.n - int(mask.sum())
+                  and not mask[eng.graph.entry_point]
+                  and eng.graph.entry_point != entry,
+                  f"tombstones, {where}, {name}: the entry point moved to a "
+                  f"live node ({entry} -> {eng.graph.entry_point})")
+            check(not mask[ids[ids >= 0]].any(),
+                  f"tombstones, {where}, {name}: no tombstoned id returned")
+    out["new_entry"] = card["engines"]["batched"].graph.entry_point
+    out.update(check_opened_results(port, shape, X, Q, card, "tombstones"))
+    out.update(hold_to_cpu(card, cpu, "tombstones", PERSIST_CPU_QUERIES))
+    return out
+
+
 # ----------------------------------------------------------- phase 4b
 
 
@@ -3226,6 +3527,28 @@ def main() -> int:
     record["cache_sizing"] = sizing
     print(f"cache sizing and the baseline, {sizing['card']}, in "
           f"{record['cache_sizing_s']:.1f} s: {json.dumps(sizing)}",
+          flush=True)
+    # 4f. persistence: each precision's index saved and reopened from its
+    # shard files, the float32 one tombstoned on disk and reopened
+    stamp(record, "persistence")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    persist = run_persistence(port, shape, X, Q, runs)
+    counts = ops.launch_counts()
+    record["persistence_s"] = time.perf_counter() - t0
+    for kname in ("hop_step", "gather_distance", "gather_distance_batch",
+                  "dequant_gather_distance", "dequant_gather_distance_batch",
+                  "adc_gather_distance", "adc_gather_distance_batch",
+                  "merge_topk"):
+        check(counts[kname] > 0,
+              f"kernel {kname} launched by the reopened engines "
+              f"({counts[kname]})")
+    record["launches"]["persistence"] = counts
+    for kname, n in counts.items():
+        launches[kname] += n
+    record["persistence"] = persist
+    print(f"persistence, {persist['card']}, in "
+          f"{record['persistence_s']:.1f} s: {json.dumps(persist)}",
           flush=True)
     # 4b. the distributed substrate: flat scan at 480k, hnsw mode
     stamp(record, "substrate")

@@ -50,7 +50,7 @@ def get(arch_id: str) -> ArchSpec:
     if arch_id in UNPORTED:
         raise KeyError(
             f"arch {arch_id!r} is not ported yet: the LM and GNN models come "
-            f"with ROADMAP item A.1; available: {sorted(REGISTRY)}"
+            f"with ROADMAP item A.9; available: {sorted(REGISTRY)}"
         )
     if arch_id not in REGISTRY:
         raise KeyError(

@@ -30,17 +30,28 @@ storage backend carries (a ``codebook`` attribute) or trains one at
 construction, and freezes it; a search builds its queries' ADC lookup
 tables once and the hops read the code slab through the ADC kernel.
 
+The session API (DESIGN.md §6): ``WebANNSEngine.open(path)`` reopens a
+saved :class:`~repro_torch.core.index.Index` (one bulk load of the graph,
+the vector payload left on disk behind a ``ShardedFileBackend`` and read
+lazily as tier 3); ``engine.save(path)`` persists the artifact in the
+reference's format, so either package opens what the other saved. An
+artifact's tombstones (DESIGN.md §8) are honoured on open: every driver
+pre-marks them visited, so a deleted id is never seeded, expanded,
+fetched or returned, and the entry point moves to a live node.
+
 The engine runs on the card unless ``EngineConfig.device`` says
-``"cpu"``; without CUDA the default raises. Sharding, metadata filters,
-mutation and persistence come with later slices of the port and raise
-``NotImplementedError`` naming their ROADMAP item.
+``"cpu"``; without CUDA the default raises. Sharding, metadata filters
+and mutation (``add``, ``delete``, ``upsert``) come with later slices of
+the port and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import List, Optional, Tuple, Union
+import uuid as uuid_mod
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,6 +60,8 @@ from repro_torch.core import pq, quant
 from repro_torch.core import search as S
 from repro_torch.core.graph import HNSWGraph
 from repro_torch.core.hnsw import build_hnsw
+from repro_torch.core.index import Index
+from repro_torch.core.metadata import MetadataStore
 from repro_torch.core.storage import StorageBackend
 from repro_torch.core.store import (
     EVICT_LRU,
@@ -206,19 +219,48 @@ class SearchResult:
 class WebANNSEngine:
     """The query session over a graph and a tier-3 source.
 
-    ``source`` is a raw ``(N, d)`` float32 array or any
-    :class:`StorageBackend`; tier 3 stays on the host, tier 2 and the
-    graph live on ``config.device``.
+    ``source`` is a raw ``(N, d)`` float32 array, any
+    :class:`StorageBackend` (the mmap'd shards of a saved index among
+    them), or an :class:`Index` (then ``graph`` is omitted: the index
+    brings it, with its tombstones, lineage and metadata); tier 3 stays
+    on the host, tier 2 and the graph live on ``config.device``.
     """
 
     def __init__(
         self,
-        source: Union[np.ndarray, StorageBackend],
-        graph: HNSWGraph,
+        source: Union[np.ndarray, StorageBackend, Index],
+        graph: Optional[HNSWGraph] = None,
         config: Optional[EngineConfig] = None,
+        metadata: Optional[Union[MetadataStore, Dict]] = None,
     ):
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device)
+        tombstones = None
+        level_state = None
+        insert_params = None
+        codebook = None
+        self._uuid: Optional[str] = None
+        self._last_save_path: Optional[str] = None
+        if isinstance(source, Index):
+            if graph is not None:
+                raise ValueError(
+                    "pass either an Index or (vectors, graph), not both"
+                )
+            graph = source.graph
+            tombstones = source.tombstones
+            level_state = source.level_state
+            insert_params = source.insert_params
+            codebook = source.codebook
+            if metadata is None:
+                metadata = source.metadata
+            self._uuid = source.uuid
+            self._last_save_path = (
+                os.path.realpath(source.path)
+                if source.path is not None else None
+            )
+            source = source.backend
+        if graph is None:
+            raise ValueError("an HNSWGraph is required (or pass an Index)")
         self.graph = graph
         self.external = ExternalStore(
             source,
@@ -231,12 +273,15 @@ class WebANNSEngine:
             raise ValueError(
                 f"graph covers {graph.size} ids, tier 3 holds {self.n}"
             )
-        # PQ codebook lifecycle (DESIGN.md §12): adopt the storage
-        # backend's frozen codebook, else train one here (seed 0); frozen
-        # thereafter. An adopted codebook's M overrides the config's.
+        # PQ codebook lifecycle (DESIGN.md §12): adopt the index's or the
+        # storage backend's frozen codebook, else train one here (seed
+        # 0); frozen thereafter. An adopted codebook's M overrides the
+        # config's.
         self.pq_codebook: Optional[pq.PQCodebook] = None
         if self.config.precision == "pq":
-            cb = getattr(self.external.base_backend, "codebook", None)
+            cb = codebook
+            if cb is None:
+                cb = getattr(self.external.base_backend, "codebook", None)
             if cb is None:
                 cb = pq.train_pq(
                     self.external.base_backend.fetch(np.arange(self.n)),
@@ -262,6 +307,46 @@ class WebANNSEngine:
         # scales, made at its first query
         self._payload: Optional[Tuple[torch.Tensor,
                                       Optional[torch.Tensor]]] = None
+        # per-id metadata columns (host-resident, DESIGN.md §9), carried
+        # with the artifact; filters that read them come with ROADMAP A.5
+        if metadata is not None and not isinstance(metadata, MetadataStore):
+            metadata = MetadataStore(metadata, n_rows=self.n)
+        self.metadata: Optional[MetadataStore] = metadata
+        if self.metadata is not None and self.metadata.n_rows != self.n:
+            raise ValueError(
+                f"metadata covers {self.metadata.n_rows} ids, backend "
+                f"holds {self.n}"
+            )
+        # ----- index lifecycle state (DESIGN.md §8) -----
+        # tombstones: (N,) bool, deleted ids; every driver pre-marks them
+        # visited, so none is seeded, expanded, fetched or returned
+        self.tombstones = (
+            np.array(tombstones, dtype=bool, copy=True)
+            if tombstones is not None else np.zeros(self.n, dtype=bool)
+        )
+        if self.tombstones.shape != (self.n,):
+            raise ValueError(
+                f"tombstone mask covers {self.tombstones.shape[0]} ids, "
+                f"backend holds {self.n}"
+            )
+        # the mask on the device, or None where nothing is tombstoned
+        self._tombs_dev: Optional[torch.Tensor] = (
+            torch.as_tensor(self.tombstones, device=self.device)
+            if self.tombstones.any() else None
+        )
+        # the HNSW level stream: (seed, draws) continue the offline
+        # build's levels on insertion (exact for build() and an Index,
+        # (0, n) for a bare graph, as in the reference)
+        self._level_seed, self._levels_drawn = level_state or (0, self.n)
+        self._uuid = self._uuid or uuid_mod.uuid4().hex
+        # pre-existing graph rows whose links changed since the last save
+        # (the rows a delta save rewrites); empty until insertion lands
+        self._dirty_nodes: set = set()
+        self.insert_ef_construction, self.insert_heuristic = (
+            insert_params or (200, True)
+        )
+        if self.tombstones[self.graph.entry_point]:
+            self._repair_entry()
 
     @classmethod
     def build(
@@ -271,6 +356,7 @@ class WebANNSEngine:
         ef_construction: int = 200,
         config: Optional[EngineConfig] = None,
         seed: int = 0,
+        metadata: Optional[Union[MetadataStore, Dict]] = None,
     ) -> "WebANNSEngine":
         """Build the HNSW graph on the host, then open an engine on it."""
         config = config or EngineConfig()
@@ -279,14 +365,98 @@ class WebANNSEngine:
             vectors, M=M, ef_construction=ef_construction,
             metric=config.metric, seed=seed,
         )
-        return cls(vectors, g, config)
+        eng = cls(vectors, g, config, metadata=metadata)
+        # the exact level stream and insertion knobs, as the reference's
+        # build records them (they persist in the manifest)
+        eng._level_seed, eng._levels_drawn = seed, len(vectors)
+        eng.insert_ef_construction = ef_construction
+        return eng
 
     @classmethod
-    def open(cls, path: str, *args, **kwargs) -> "WebANNSEngine":
-        raise _not_in_slice("reopening a saved index", "Persistence")
+    def from_index(
+        cls, index: Index, config: Optional[EngineConfig] = None,
+    ) -> "WebANNSEngine":
+        """Session over an index artifact. The index's metric is
+        authoritative: a differing ``config.metric`` is overridden."""
+        config = config or EngineConfig(metric=index.metric)
+        if config.metric != index.metric:
+            config = dataclasses.replace(config, metric=index.metric)
+        return cls(index, config=config)
 
-    def save(self, path: str, *args, **kwargs) -> dict:
-        raise _not_in_slice("saving an index", "Persistence")
+    @classmethod
+    def open(
+        cls, path: str, config: Optional[EngineConfig] = None,
+        mmap: bool = True,
+    ) -> "WebANNSEngine":
+        """Reopen a saved index (either package's): the paper's
+        initialization-stage bulk load, one access per shard, the graph
+        materialized on ``config.device`` and the vector payload left on
+        disk behind a ``ShardedFileBackend`` (``mmap=False`` stages the
+        shards through host memory). No HNSW rebuild; a pq artifact's
+        codebook is adopted, never retrained."""
+        resolve_device(config.device if config is not None else None)
+        return cls.from_index(Index.load(path, mmap=mmap), config)
+
+    def save(
+        self,
+        path: str,
+        shard_bytes: int = 64 * 1024 * 1024,
+        precision: Optional[str] = None,
+    ) -> dict:
+        """Persist this session's index (graph, vectors, tombstones,
+        metadata) in the reference's format.
+
+        When ``path`` is the directory this session was opened from (or
+        last saved to), only what changed since is written (a delta
+        save, DESIGN.md §8); any other target gets a full save. Returns
+        ``{"mode", "bytes_written", "epoch"}``. ``precision=None``
+        follows the session's precision: an int8 session writes int8
+        shards, and a session reopened over them serves the dequantized
+        payload as tier 3, so its exact rerank is exact with respect to
+        that payload. Pass ``"float32"`` to keep tier 3 full precision.
+        """
+        idx = self.index
+        # real paths: another spelling of the session's own directory
+        # stays in its lineage
+        if os.path.realpath(path) != self._last_save_path:
+            idx.uuid = None  # a new lineage for a new target directory
+        info = idx.save(path, shard_bytes=shard_bytes,
+                        precision=precision or self.config.precision,
+                        dirty_nodes=self._dirty_nodes)
+        self._uuid = idx.uuid
+        self._last_save_path = os.path.realpath(path)
+        self._dirty_nodes = set()
+        return info
+
+    @property
+    def index(self) -> Index:
+        """The session's index artifact (graph, storage, tombstones)."""
+        return Index(
+            graph=self.graph,
+            backend=self.external.base_backend,
+            path=self._last_save_path,
+            tombstones=self.tombstones,
+            uuid=self._uuid,
+            level_state=(self._level_seed, self._levels_drawn),
+            insert_params=(
+                self.insert_ef_construction, self.insert_heuristic
+            ),
+            metadata=self.metadata,
+            codebook=self.pq_codebook,
+        )
+
+    @property
+    def n_live(self) -> int:
+        """Rows a search can still return (total minus tombstoned)."""
+        return self.n - int(self.tombstones.sum())
+
+    def _repair_entry(self) -> None:
+        """Move the HNSW entry point to a live node (the highest-level
+        one, as the offline build would pick)."""
+        live = np.nonzero(~self.tombstones)[0]
+        if live.size == 0:
+            return  # empty engine: searches short-circuit to -1 results
+        self.graph.entry_point = int(live[np.argmax(self.graph.levels[live])])
 
     def add(self, vectors, *args, **kwargs):
         raise _not_in_slice("add", "Mutation and filters")
@@ -327,6 +497,7 @@ class WebANNSEngine:
         if ids is None:
             ids = np.arange(min(self.store.capacity, self.n))
         ids = np.asarray(ids)
+        ids = ids[~self.tombstones[ids]]  # never stage tombstoned rows
         if len(ids):
             self.store.warm(ids)
 
@@ -413,7 +584,8 @@ class WebANNSEngine:
         miss_cap = ef + self.graph.max_degree + 1
         entry_np = np.full(max(len(entry_ids), 1), -1, np.int32)
         entry_np[: len(entry_ids)] = entry_ids
-        state = S.make_state(ef, miss_cap, self.n, self.device)
+        state = S.make_state(ef, miss_cap, self.n, self.device,
+                             self._tombs_dev)
         state = S.seed_state(
             state, q, torch.as_tensor(entry_np, device=self.device),
             S.cache_tier2(self.store.cache, luts), cfg.metric,
@@ -464,7 +636,7 @@ class WebANNSEngine:
         trigger = 1 if eager else ef
         t0 = self._clock()
         states = S.batch_make_state(
-            Q.shape[0], ef, miss_cap, self.n, self.device
+            Q.shape[0], ef, miss_cap, self.n, self.device, self._tombs_dev
         )
         states = S.batch_seed_state(
             states, Q, torch.as_tensor(entry_ids, device=self.device),
@@ -544,7 +716,7 @@ class WebANNSEngine:
             torch.as_tensor(np.asarray(q, np.float32), device=self.device),
             payload, scales, self.neighbors, self.graph.entry_point,
             self.store.cache, k=k_run, ef=ef, metric=cfg.metric,
-            eviction=self.store.eviction,
+            eviction=self.store.eviction, tombstones=self._tombs_dev,
         )
         # the search's only reads on the host: its result and counters
         n_db, n_fetch = (int(c) for c in torch.stack([n_db, n_fetch]).cpu())
@@ -574,6 +746,9 @@ class WebANNSEngine:
         """Single-query driver body. Returns (ids, dists, stats)."""
         cfg = self.config
         ef = ef or cfg.ef_search
+        if self.n_live == 0:  # fully-tombstoned index: nothing to return
+            return (np.full(k, -1, np.int32),
+                    np.full(k, np.inf, np.float32), QueryStats())
         if cfg.fused and cfg.mode == "webanns":
             return self._query_fused(q, k, ef)
         eager = cfg.mode == "webanns-base"
@@ -620,6 +795,11 @@ class WebANNSEngine:
         ef = ef or cfg.ef_search
         Q = np.asarray(Q, dtype=np.float32)
         B = len(Q)
+        if self.n_live == 0:  # fully-tombstoned index: nothing to return
+            self.last_batch_stats = BatchStats(batch_size=B)
+            return (np.full((B, k), -1, np.int32),
+                    np.full((B, k), np.inf, np.float32),
+                    [QueryStats() for _ in range(B)])
         # a fused engine runs its batch once a query (there is no fused
         # batch driver), as the reference does
         if cfg.fused and cfg.mode == "webanns" and batch_mode == "batched":

@@ -46,7 +46,11 @@ hop step, then the phase boundary's gather, tier-2 insert and load
 phase, each masked by "boundary reached"), with its access counters on
 the device: it syncs every :data:`STEPS_PER_SYNC` steps and once a
 search, never once a phase.
-Filters (``banned``) and tombstones come with later slices of the port.
+Tombstones (deleted ids, DESIGN.md §8) enter as pre-marked ``visited``
+bits (:func:`batch_make_state`): a tombstoned id is never seeded,
+expanded, fetched or returned, and every step, the kernel's included,
+reads ``visited`` as state. Filters (``banned``) come with a later slice
+of the port.
 """
 
 from __future__ import annotations
@@ -228,13 +232,19 @@ def _where_rows(active: torch.Tensor, new: Beam, old: Beam) -> Beam:
 
 def batch_make_state(
     batch: int, ef: int, miss_cap: int, n: int, device: torch.device,
+    tombstones: Optional[torch.Tensor] = None,
 ) -> SearchState:
-    """Fresh state for ``batch`` queries of one layer search."""
+    """Fresh state for ``batch`` queries of one layer search.
+    ``tombstones`` ((n,) bool on ``device``) pre-marks deleted ids as
+    visited in every query's row, the spare column left False."""
     one = beam_init(ef, device)
+    visited = torch.zeros((batch, n + 1), dtype=torch.bool, device=device)
+    if tombstones is not None:
+        visited[:, :n] = tombstones
     return SearchState(
         beam=Beam(*(t.repeat(batch, 1)
                     for t in (one.ids, one.dists, one.explored))),
-        visited=torch.zeros((batch, n + 1), dtype=torch.bool, device=device),
+        visited=visited,
         miss_ids=torch.full((batch, miss_cap), -1, dtype=torch.int32,
                             device=device),
         miss_count=torch.zeros((batch,), dtype=torch.int64, device=device),
@@ -534,8 +544,9 @@ def _first(state: SearchState) -> SearchState:
     return _map_state(state, lambda t: t[0])
 
 
-def make_state(ef: int, miss_cap: int, n: int, device: torch.device) -> SearchState:
-    return _first(batch_make_state(1, ef, miss_cap, n, device))
+def make_state(ef: int, miss_cap: int, n: int, device: torch.device,
+               tombstones: Optional[torch.Tensor] = None) -> SearchState:
+    return _first(batch_make_state(1, ef, miss_cap, n, device, tombstones))
 
 
 def seed_state(
@@ -583,13 +594,13 @@ def _where_state(m: torch.Tensor, new: SearchState,
 
 def _fused_layer(
     q, neighbors_l, payload, payload_scales, cache, entry_ids, ef, metric,
-    eviction, max_phases, luts, eager: bool,
+    eviction, max_phases, luts, tombstones, eager: bool,
 ) -> Tuple[SearchState, CacheState, torch.Tensor, torch.Tensor]:
     n = neighbors_l.shape[0]
     dev = q.device
     Q = q[None]
     miss_cap = ef + neighbors_l.shape[1] + 1
-    state = batch_make_state(1, ef, miss_cap, n, dev)
+    state = batch_make_state(1, ef, miss_cap, n, dev, tombstones)
     state = batch_seed_state(state, Q, entry_ids[None],
                              cache_tier2(cache, luts), metric)
 
@@ -649,6 +660,7 @@ def search_layer_lazy_fused(
     eviction: int = 0,
     max_phases: int = 256,
     luts: Optional[torch.Tensor] = None,  # (1, L, M, 256): pq search
+    tombstones: Optional[torch.Tensor] = None,  # (N,) bool: deleted ids
 ) -> Tuple[SearchState, CacheState, torch.Tensor, torch.Tensor]:
     """One layer of Algorithm 1 with the tier-3 payload on the device
     (the port of ``repro.core.search.search_layer_lazy_fused``).
@@ -671,13 +683,14 @@ def search_layer_lazy_fused(
     phase, each masked by "boundary reached". On CUDA tensors the steps
     replay from a CUDA graph with one host sync every
     :data:`STEPS_PER_SYNC` steps; on the CPU this is
-    :func:`search_layer_lazy_fused_eager`. Returns ``(state, cache, n_db,
-    n_fetched)``, the counts as () int64 device tensors: one access for
-    each phase that missed.
+    :func:`search_layer_lazy_fused_eager`. ``tombstones`` pre-marks
+    deleted ids as visited (:func:`batch_make_state`). Returns ``(state,
+    cache, n_db, n_fetched)``, the counts as () int64 device tensors: one
+    access for each phase that missed.
     """
     return _fused_layer(q, neighbors_l, payload, payload_scales, cache,
                         entry_ids, ef, metric, eviction, max_phases, luts,
-                        eager=False)
+                        tombstones, eager=False)
 
 
 def search_layer_lazy_fused_eager(
@@ -692,13 +705,14 @@ def search_layer_lazy_fused_eager(
     eviction: int = 0,
     max_phases: int = 256,
     luts: Optional[torch.Tensor] = None,
+    tombstones: Optional[torch.Tensor] = None,
 ) -> Tuple[SearchState, CacheState, torch.Tensor, torch.Tensor]:
     """:func:`search_layer_lazy_fused` with its steps called from Python
     on either device: the CPU's layer, and on the card the loop a
     replayed graph is held to."""
     return _fused_layer(q, neighbors_l, payload, payload_scales, cache,
                         entry_ids, ef, metric, eviction, max_phases, luts,
-                        eager=True)
+                        tombstones, eager=True)
 
 
 def lazy_knn_search_fused(
@@ -712,6 +726,7 @@ def lazy_knn_search_fused(
     ef: int,
     metric: str = "l2",
     eviction: int = 0,
+    tombstones: Optional[torch.Tensor] = None,  # (N,) bool: deleted ids
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
            CacheState]:
     """Whole lazy KNN query, all layers, on the device-resident payload:
@@ -720,7 +735,9 @@ def lazy_knn_search_fused(
     the reference's fused program does, and chain on the device: each
     layer's entry is the last one's best id, never read on the host. A
     pq payload ((N, M) uint8 codes of tier 2's codebook) is read through
-    the query's lookup tables, built once here for the whole search."""
+    the query's lookup tables, built once here for the whole search.
+    ``tombstones`` masks deleted ids out of every layer (pre-visited);
+    the caller passes a live ``entry``."""
     luts = None
     if payload.dtype == torch.uint8:
         luts = pq.build_lut(q, cache.codebook, metric)[None]
@@ -730,13 +747,14 @@ def lazy_knn_search_fused(
     for lc in range(neighbors.shape[0] - 1, 0, -1):
         st, cache, db, fc = search_layer_lazy_fused(
             q, neighbors[lc], payload, payload_scales, cache, entry_ids, 1,
-            metric, eviction=eviction, luts=luts,
+            metric, eviction=eviction, luts=luts, tombstones=tombstones,
         )
         n_db, n_fetch = n_db + db, n_fetch + fc
         entry_ids = st.beam.ids[:1]
     st, cache, db, fc = search_layer_lazy_fused(
         q, neighbors[0], payload, payload_scales, cache, entry_ids,
         max(ef, k), metric, eviction=eviction, luts=luts,
+        tombstones=tombstones,
     )
     return (st.beam.dists[:k], st.beam.ids[:k], (n_db + db, n_fetch + fc),
             cache)

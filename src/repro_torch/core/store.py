@@ -15,7 +15,9 @@ during a search.
 
 Tier 3 is :class:`ExternalStore`: exact access counters and the cost
 model ``t_access = t_setup + n_items * t_per_item`` (paper Fig. 3b) over
-a host-side :class:`~repro_torch.core.storage.StorageBackend`.
+a host-side :class:`~repro_torch.core.storage.StorageBackend`: a
+NumPy array, or the mmap'd shards of a saved index
+(``ShardedFileBackend``), which a reopened engine reads lazily.
 :class:`TieredStore` composes the two: one tier-3 access per bulk load.
 
 Differences from the JAX reference (``repro.core.store``), all
@@ -364,6 +366,14 @@ class ExternalStore:
     def base_backend(self) -> StorageBackend:
         """The storage medium itself, LatencyModel wrappers stripped."""
         return unwrap_backend(self.backend)
+
+    @property
+    def vectors(self) -> np.ndarray:
+        """Full payload, materialized (init-stage all-in-one load): the
+        array of an :class:`InMemoryBackend`, the dequantized (or
+        decoded) shards of a ``ShardedFileBackend``, base and appended
+        rows of a ``DeltaBackend``."""
+        return self.backend.vectors
 
     @property
     def simulate_latency(self) -> bool:

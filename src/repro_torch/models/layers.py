@@ -3,7 +3,7 @@
 So far only what the recsys family needs: the parameter draw (the
 reference's ``_init``; its ``Params`` alias has no use here, where
 parameters live in ``nn.Module``s). The reference's RMSNorm, RoPE and LM
-blocks (``repro.models.layers``) come with the LM models (ROADMAP A.1).
+blocks (``repro.models.layers``) come with the LM models (ROADMAP A.9).
 """
 
 from __future__ import annotations

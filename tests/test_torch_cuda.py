@@ -1181,6 +1181,90 @@ def test_hop_step_wrapper_rejects_what_the_kernel_does_not_take(hop_data):
         HS.hop_step_cuda(*args, t2.table, t2.scales, *maps, "dot", 8, 100)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", ["layer0", "upper"])
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16"])
+def test_hop_step_kernel_honours_preset_visited_bits(hop_data, precision, B,
+                                                     layer):
+    """Tombstones enter a search as pre-set ``visited`` bits
+    (``batch_make_state``): from fresh states holding a third of the nodes
+    so marked (the first entry's neighbours among them), seeded and then
+    stepped, B.8 equals the per-op step under ``torch.equal`` at every
+    step, layer 0's shape (ef 64, degree 32, a cached tier 2) and an upper
+    layer's (ef 1, degree 16, the whole table), and no marked id enters a
+    beam."""
+    X, Qn, nbrs_np, tier2s = hop_data[HOP_D]
+    dev = torch.device("cuda")
+    ef, deg, cached = (64, 32, True) if layer == "layer0" else (1, 16, False)
+    rng = np.random.default_rng(ef * 100 + B)
+    tier2 = tier2s[(precision, cached)]
+    n = X.shape[0]
+    rows = nbrs_np[deg]
+    live = np.flatnonzero((rows != -1).any(1))
+    if cached:  # entries the seed finds in tier 2
+        ids = tier2.cache.id_of.cpu().numpy()
+        live = np.intersect1d(live, ids[ids >= 0])
+    entry = rng.choice(live, B)
+    tomb = rng.random(n) < 1 / 3
+    tomb[rows[entry[0]][rows[entry[0]] >= 0]] = True
+    tomb[entry] = False
+    tomb_t = torch.from_numpy(tomb).to(dev)
+    Q = torch.from_numpy(Qn[:B]).to(dev)
+    nbrs = torch.from_numpy(rows).to(dev)
+    state = S.batch_make_state(B, ef, ef + deg + 1, n, dev, tomb_t)
+    state = S.batch_seed_state(
+        state, Q, torch.from_numpy(entry[:, None].astype(np.int32)).to(dev),
+        tier2, "l2")
+    steps = 0
+    for _ in range(8):
+        before = ops.launch_counts()["hop_step"]
+        got = S.batch_hop_step(Q, nbrs, state, tier2, "l2", ef)
+        assert ops.launch_counts()["hop_step"] - before == 1
+        want = S.batch_hop_step_plain(Q, nbrs, state, tier2, "l2", ef)
+        for g, w in zip(cs.hop_step_args(S, *got), cs.hop_step_args(S, *want)):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        state = want[0]
+        ids = state.beam.ids
+        assert not bool(tomb_t[ids.clamp(min=0).long()][ids >= 0].any())
+        assert torch.equal(state.visited[:, :n] | ~tomb_t, torch.ones_like(
+            state.visited[:, :n]))  # every tombstone still marked
+        steps += int(want[1].any())
+    assert steps > 0  # the steps did work
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver", ["single", "loop", "batched", "fused"])
+def test_reopened_engine_on_card_equals_in_memory(cuda, tmp_path, driver):
+    """A float32 engine saved and reopened on the card (tier 3 served from
+    the mmap'd shards) against the in-memory card engine it was saved
+    from, each from a cold tier 2: ids and distances bit for bit, access
+    counts equal."""
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((600, 64)).astype(np.float32)
+    Q = X[rng.choice(600, 6)] + 0.1 * rng.standard_normal((6, 64)).astype(
+        np.float32)
+    g = build_hnsw(X, M=8, ef_construction=40, seed=0)
+    cfg = E.EngineConfig(cache_capacity=150, fused=driver == "fused")
+    E.WebANNSEngine(X, g, cfg).save(str(tmp_path / "idx"),
+                                    shard_bytes=1 << 15)
+    mem = E.WebANNSEngine(X, g, cfg)
+    disk = E.WebANNSEngine.open(str(tmp_path / "idx"), cfg)
+    assert disk.device.type == "cuda"
+    if driver == "single":
+        req = E.SearchRequest(query=Q[0], k=10, ef=32)
+    else:
+        req = E.SearchRequest(query=Q, k=10, ef=32,
+                              batch_mode="batched" if driver == "batched"
+                              else "loop")
+    a, b = mem.search(req), disk.search(req)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.dists, b.dists)
+    assert mem.access_stats.n_db == disk.access_stats.n_db > 0
+    assert mem.access_stats.items_fetched == disk.access_stats.items_fetched
+    assert disk.external.base_backend.shard_reads > 0
+
+
 # ------------------------------------------------- cache sizing on the card
 
 SIZING_T_IN = 1e-4  # count-only latency model: seconds an item visited
