@@ -16,8 +16,11 @@ the script exits non-zero:
 3. kernels against their plain PyTorch versions, on the card, at the
    shapes of the query path (the dequant kernel at int8 and float16), and
    the flat scan's: the merge exactly at tie-heavy rows on both sides of
-   its variant switch (M = 255, 256, 257, and 1,000) and at rows shaped
-   as the beam merge sends them; the distance matrix at l2/ip/cos within
+   its variant switch (M = 255, 256, 257, and 1,000), at rows shaped
+   as the beam merge sends them, at the rows a filter's wider beam sends
+   ((32 and 1, 288 and 545) to k = 256, (32, 449) to 208:
+   ``filter_merge_shapes``) and at a filtered finalize's (a (B, 256)
+   beam, half denied, to k = 10); the distance matrix at l2/ip/cos within
    DM_TOL of the metric's scale, the top-k exactly (k = 1, 10 and the
    cap, ragged N, ties across tiles and across merge levels, all-inf
    rows, rows with fewer than k finite, retrieval's (1, 1,000,000)); and
@@ -33,6 +36,10 @@ the script exits non-zero:
    kernels' tolerance, up to near ties; the rest exactly); and to the
    per-op step on states with exact ties (``tie_corpus``), beams out of
    order (``shuffle_beams``) and repeated ids (``duplicate_beams``);
+   and, equal to the per-op step with one launch, over the tier 2s
+   mutations leave (``mutated_tier2``: a delete's holes in ``slot_of``
+   and ``id_of``, an add's grown id space, tombstones pre-set in
+   ``visited``) at ef 64 and 208;
 4. the query paths, on one N = 10,000, d = 768 corpus and one HNSW graph
    at the paper's widths (M = 16, ef_construction = 200), each on fresh
    engines on the card with a cold 25% tier 2 and its launch counts set
@@ -108,6 +115,23 @@ the script exits non-zero:
    (``storage.save_tombstones``) and the artifact reopened: the entry
    point moves to a live node and no driver returns a tombstoned id, on
    the card and on the CPU, the two held to each other as above;
+   then metadata filters and mutation (phase 4g), on the same corpus,
+   graph and queries, with the launch counts set to 0 just before it and
+   read just after: (a) a seeded ``cat`` (10 values) and ``year`` (50)
+   column and three filters of selectivity 0.5, 0.1 and 0.02 (ef 64
+   boosted to 96, 208, 256) through the single, ``loop``, ``batched``
+   and fused drivers at float32 and int8 on fresh engines, each beside
+   an unfiltered search at the boosted ef: no denied id, its ``n_db``
+   (and at float32 ``items_fetched``) exactly, float32 recall@10 >= 0.95
+   against the filtered brute force at 0.5 and 0.1, and at 0.1 the
+   batched ids on 8 queries against a CPU engine's; (b) at float32,
+   int8 and pq, 5% of the rows and the entry point deleted, 500 rows
+   added and 100 upserted (host clock each) on an engine whose step
+   graphs were captured, then phase 4's queries and 32 noisy copies of
+   added rows served in the four drivers: the ids the mutations give
+   and take, no deleted or upserted-away id, float32 finding each
+   copy's row in its top 10 (>= 0.9), 8 queries against a CPU engine on
+   the same index and tier 2, step graphs captured anew and replayed;
    then the distributed substrate at world size 1 over NCCL: the flat
    scan (``distributed_brute_force``, k = 10, l2) over the paper's own
    480,000 x 768 corpus, checked for recall@10 >= 0.999 against brute
@@ -133,7 +157,7 @@ the script exits non-zero:
    replayed hop step through each, from torch.profiler; B.8's stage
    split from its timing instantiation's clock stamps beside the launch
    floor, an empty kernel on its grid, at float32;
-   the merge also at the beam merge's rows, the top-k also at
+   the merge also at the beam merge's rows and a filter's, the top-k also at
    retrieval's shape, each beside ``torch.topk``; the distance matrix at
    the flat scan's and retrieval's shapes beside ``torch.matmul``),
    the end-to-end latency of batched, single-query and fused searches at
@@ -154,6 +178,7 @@ result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -205,6 +230,13 @@ PQ_RECALL_TOL = 0.02
 # the corpus, the HNSW build, the queries and the pq codebook
 CORPUS_SEED, GRAPH_SEED, QUERY_SEED, PQ_SEED = 13, 0, 5, 0
 
+# a filter of live selectivity s widens ef = 64 to ef·min(4, √(1/s)),
+# snapped up to 8 (engine._boost_ef): 96 at s = 0.5, 208 at 0.1, 256 at
+# s <= 1/16. The hop step's merge row is ef + degree (128, 240, 288: B.8
+# takes the first two, the per-op step the last), a load phase's is
+# 2·ef + degree + 1 (225, 449, 545): B.2's one-block-a-row variant
+FILTER_EFS = (96, 208, 256)
+
 
 @dataclasses.dataclass(frozen=True)
 class Shape:
@@ -248,7 +280,7 @@ def load_port():
     from repro_torch.core import search, step_graph, store
     from repro_torch.core.eval import brute_force_topk, recall_at_k
     from repro_torch.core.hnsw import build_hnsw
-    from repro_torch.core import index, storage
+    from repro_torch.core import index, metadata, storage
     from repro_torch.core.storage import InMemoryBackend
     from repro_torch.data.synthetic import corpus_embeddings
     from repro_torch.core import distributed
@@ -273,6 +305,7 @@ def load_port():
         configs=configs, click_batches=click_batches, embeddings=embeddings,
         recsys=recsys, search=search, step_graph=step_graph, store=store,
         cache_opt=cache_opt, mememo=mememo, storage=storage, index=index,
+        metadata=metadata,
     )
 
 
@@ -403,21 +436,48 @@ def path_merge_inputs(rng, B: int, M: int, ef: int, dev):
     return torch.from_numpy(d).to(dev), torch.from_numpy(ids).to(dev)
 
 
+def finalize_inputs(rng, B: int, ef: int, dev):
+    """A layer-0 beam as ``search.finalize_topk`` hands it to the merge
+    under a filter: ef ascending distances, distinct ids, about half of
+    the entries denied and so (+inf, -1)."""
+    d, i = path_merge_inputs(rng, B, ef, ef, dev)
+    denied = torch.from_numpy(rng.random((B, ef)) < 0.5).to(dev)
+    return torch.where(denied, np.inf, d), torch.where(denied, -1, i)
+
+
+def filter_merge_shapes(shape: Shape) -> list:
+    """(B, M, k) of the merges a filter's wider beam sends B.2 past 256
+    entries: the per-op hop step at ef 256 (M = ef + degree) and the load
+    phases at ef 208 and 256 (M = 2·ef + degree + 1), batched and single
+    (DESIGN.md §9; ``FILTER_EFS``)."""
+    out = []
+    for B in (shape.batch, 1):
+        out += [(B, 256 + shape.degree, 256),
+                (B, 2 * 256 + shape.degree + 1, 256)]
+    return out + [(shape.batch, 2 * 208 + shape.degree + 1, 208)]
+
+
 def merge_checks(shape: Shape) -> list:
     """(kind, B, M, k) rows phase 3 holds the merge to its plain version
     on: the beam merge's rows a hop and a load phase (tie-heavy and
-    path-like), at B = 1 for the loop and single drivers, the finalize's
-    k = 1, and the widths on both sides of the warp-sort variant's limit
-    of 256 and well past it (the block-argmin variant)."""
+    path-like, the beam k wide), at B = 1 for the loop and single
+    drivers, the finalize's k = 1, and the widths on both sides of the
+    warp-sort variant's limit of 256 and well past it (the block-argmin
+    variant); a filter's wider beams (``filter_merge_shapes``) and a
+    filtered finalize (a (B, 256) beam, half denied, to k)."""
     hop, load = shape.ef + shape.degree, shape.ef + shape.miss_cap
-    return [("ties", shape.batch, hop, shape.ef),
-            ("ties", shape.batch, load, shape.ef),
-            ("ties", shape.batch, shape.degree + 1, 1),
-            ("path", shape.batch, hop, shape.ef),
-            ("path", shape.batch, load, shape.ef),
-            ("path", 1, hop, shape.ef),
-            ("ties", 4, 255, shape.ef), ("ties", 4, 256, shape.ef),
-            ("ties", 4, 257, shape.ef), ("ties", 3, 1_000, 50)]
+    return ([("ties", shape.batch, hop, shape.ef),
+             ("ties", shape.batch, load, shape.ef),
+             ("ties", shape.batch, shape.degree + 1, 1),
+             ("path", shape.batch, hop, shape.ef),
+             ("path", shape.batch, load, shape.ef),
+             ("path", 1, hop, shape.ef),
+             ("ties", 4, 255, shape.ef), ("ties", 4, 256, shape.ef),
+             ("ties", 4, 257, shape.ef), ("ties", 3, 1_000, 50)]
+            + [("path", B, M, k) for B, M, k in filter_merge_shapes(shape)]
+            + [("ties", shape.batch, M, k)
+               for B, M, k in filter_merge_shapes(shape) if B > 1]
+            + [("finalize", B, 256, shape.k) for B in (shape.batch, 1)])
 
 
 def check_kernels(port, shape: Shape, dev, rng) -> dict:
@@ -452,8 +512,12 @@ def check_kernels(port, shape: Shape, dev, rng) -> dict:
     err.update(check_dequant_kernels(port, shape, dev, rng))
     err.update(check_adc_kernels(port, shape, dev, rng))
     for kind, B, M, k in merge_checks(shape):
-        d, i = (merge_inputs(rng, B, M, dev) if kind == "ties"
-                else path_merge_inputs(rng, B, M, shape.ef, dev))
+        if kind == "ties":
+            d, i = merge_inputs(rng, B, M, dev)
+        elif kind == "path":
+            d, i = path_merge_inputs(rng, B, M, k, dev)
+        else:
+            d, i = finalize_inputs(rng, B, M, dev)
         got = ops.merge_topk(d, i, k)
         want = ref.merge_topk_ref(d, i, k)
         torch.cuda.synchronize()
@@ -982,7 +1046,9 @@ def check_hop_step_kernel(port, shape: Shape, dev, rng) -> dict:
           f"hop_step: {n_active} active queries over {n_cases} cases")
     n_cases += check_hop_step_orders(port, shape, dev, rng, nbrs, shapes,
                                      X, Qall)
-    return {"hop_step": err, "hop_step_cases": n_cases}
+    n_mutated = check_hop_step_mutated(port, shape, dev, rng)
+    return {"hop_step": err, "hop_step_cases": n_cases + n_mutated,
+            "hop_step_mutated_cases": n_mutated}
 
 
 def check_hop_step_orders(port, shape: Shape, dev, rng, nbrs, shapes, X,
@@ -1021,6 +1087,100 @@ def check_hop_step_orders(port, shape: Shape, dev, rng, nbrs, shapes, X,
                           f"hop_step {kind} {precision} {name} {metric}: = "
                           "the per-op step (torch.equal)")
                     n_cases += 1
+    return n_cases
+
+
+MUTATED_TIER2 = ("evicted", "grown", "tombstoned")
+# layer 0's ef and a filter's boost of it to 208 (merge rows of 96 and
+# 240, both B.8's)
+HOP_MUTATED_EFS = (64, 208)
+
+
+def mutated_tier2(port, X: np.ndarray, precision: str, kind: str, rng,
+                  capacity: int, dev):
+    """A cached tier 2 of ``capacity`` rows of X at ``precision`` as a
+    mutation leaves it, and the tombstone mask its searches start from:
+
+    - "evicted": a full tier 2, then a third of its ids and a few
+      uncached ones deleted (``TieredStore.invalidate``): holes in
+      ``slot_of`` and ``id_of``;
+    - "grown": a tier 2 over the first 90% of X, then the rest appended
+      (``ExternalStore.append``), the id space grown
+      (``TieredStore.grow``) and some appended rows inserted, evicting
+      older ones;
+    - "tombstoned": as "evicted", the deleted ids also tombstoned."""
+    st = port["store"]
+    n = X.shape[0]
+    n_base = n - n // 10 if kind == "grown" else n
+    store = st.TieredStore(st.ExternalStore(X[:n_base]), capacity=capacity,
+                           device=dev, precision=precision)
+    store.warm(rng.choice(n_base, capacity, replace=False))
+    tomb = np.zeros(n, bool)
+    if kind == "grown":
+        store.external.append(X[n_base:])
+        store.grow(n)
+        store.warm(rng.choice(np.arange(n_base, n), n // 40, replace=False))
+    else:
+        cached = store.cache.id_of.cpu().numpy()
+        gone = np.union1d(rng.choice(cached[cached >= 0], capacity // 3,
+                                     replace=False),
+                          rng.choice(n, n // 50, replace=False))
+        store.invalidate(gone)
+        tomb[gone] = kind == "tombstoned"
+    return port["search"].cache_tier2(store.cache), tomb
+
+
+def tombstone_state(S, state, tomb: np.ndarray):
+    """``state`` with the ``tomb`` ids pre-marked visited, as
+    ``batch_make_state`` marks tombstones (none of them in a beam or a
+    miss list: a tombstoned id never enters either)."""
+    t = tomb.copy()
+    for held in (state.beam.ids, state.miss_ids):
+        h = held.cpu().numpy()
+        t[h[h >= 0]] = False
+    visited = state.visited.clone()
+    visited[:, :t.shape[0]] |= torch.as_tensor(t, device=visited.device)
+    return dataclasses.replace(state, visited=visited)
+
+
+def check_hop_step_mutated(port, shape: Shape, dev, rng) -> int:
+    """B.8 against the per-op step (``torch.equal``, all nine tensors, one
+    launch) over the tier 2s mutations leave (``mutated_tier2``: evicted
+    holes, a grown id space, tombstones pre-set in ``visited``), at
+    float32, int8 and float16, l2/ip/cos, B = 1 and 32, layer 0's degree
+    and ef 64 and 208 (``HOP_MUTATED_EFS``). Returns the number of
+    cases."""
+    S, ops = port["search"], port["ops"]
+    X = rng.standard_normal((shape.n, shape.dim)).astype(np.float32)
+    Qall = make_queries(X, shape.batch, seed=12)
+    nbrs = hop_neighbors(rng, shape.n, shape.degree)
+    N = torch.as_tensor(nbrs, device=dev)
+    n_cases = 0
+    for kind in MUTATED_TIER2:
+        for precision in PRECISIONS:
+            tier2, tomb = mutated_tier2(port, X, precision, kind, rng,
+                                        shape.cache, dev)
+            for ef in HOP_MUTATED_EFS:
+                for metric in HOP_METRICS:
+                    for B in (1, shape.batch):
+                        st = tombstone_state(S, hop_state(
+                            S, rng, X, Qall[:B], nbrs, ef,
+                            ef + shape.degree + 1, ef, 100_000, metric, dev),
+                            tomb)
+                        Qt = torch.as_tensor(Qall[:B], device=dev)
+                        what = (f"hop_step over a {kind} tier 2, {precision} "
+                                f"{metric} ef={ef} B={B}")
+                        before = ops.launch_counts()["hop_step"]
+                        got = hop_step_args(S, *S.batch_hop_step(
+                            Qt, N, st, tier2, metric, ef))
+                        check(ops.launch_counts()["hop_step"] == before + 1,
+                              f"{what}: one launch of the kernel")
+                        want = hop_step_args(S, *S.batch_hop_step_plain(
+                            Qt, N, st, tier2, metric, ef))
+                        check(all(x.dtype == y.dtype and torch.equal(x, y)
+                                  for x, y in zip(got, want)),
+                              f"{what}: = the per-op step (torch.equal)")
+                        n_cases += 1
     return n_cases
 
 
@@ -1808,8 +1968,8 @@ NPY_HEADER_MAX = 4096
 
 def persist_config(port, shape: Shape, precision: str, fused: bool,
                    device=None):
-    """The query path's engine config at ``precision``; ``device=None``
-    is the entry point's default, the card."""
+    """The query path's engine config at ``precision`` (phases 4f and
+    4g); ``device=None`` is the entry point's default, the card."""
     extra = {} if device is None else {"device": device}
     if precision == "pq":
         extra.update(pq_subspaces=PQ_SUBSPACES, rerank_alpha=PQ_ALPHA)
@@ -2065,6 +2225,268 @@ def run_tombstones(port, shape: Shape, X, Q, path: str) -> dict:
     out["new_entry"] = card["engines"]["batched"].graph.entry_point
     out.update(check_opened_results(port, shape, X, Q, card, "tombstones"))
     out.update(hold_to_cpu(card, cpu, "tombstones", PERSIST_CPU_QUERIES))
+    return out
+
+
+# ----------------------------------------------------------- phase 4g
+
+# per-id metadata of the filtered searches: `cat` 10 uniform values,
+# `year` 50; the filters' selectivities and their boosted ef
+META_SEED, MUTATION_SEED = 23, 29
+FILTER_SELECTIVITY = {"cat<5": 0.5, "cat=3": 0.1, "year=2000": 0.02}
+FILTER_DRIVERS = ("single", "loop", "batched", "fused")
+# the loop and fused drivers serve the first ONE_BY_ONE queries one at a
+# time; the batched driver the whole batch
+ONE_BY_ONE = 8
+# recall@10 of a float32 filtered search against the brute force over
+# the allowed rows, at selectivity 0.5 and 0.1 (the reference's own
+# acceptance, tests/test_filtered_search.py)
+FILTER_MIN_RECALL = 0.95
+# the mutations: 5% of the rows and the entry point deleted, 500 rows
+# added (corpus rows moved by the corpus's own spread, 0.35), 100 live
+# rows upserted; 32 noisy copies of added rows (make_queries' noise)
+# join phase 4's queries, and float32 must find each copy's row in its
+# top 10 for NOISY_MIN_HIT of them
+DELETE_FRAC, N_ADDED, N_UPSERTED, N_NOISY = 0.05, 500, 100, 32
+NOISY_MIN_HIT = 0.9
+MUTATION_PRECISIONS = ("float32", "int8", "pq")
+
+
+def filter_metadata(n: int) -> dict:
+    rng = np.random.default_rng(META_SEED)
+    return {"cat": rng.integers(0, 10, n),
+            "year": 1975 + rng.integers(0, 50, n)}
+
+
+def make_filters(port) -> dict:
+    F = port["metadata"].Filter
+    return {"cat<5": F.in_("cat", range(5)), "cat=3": F.eq("cat", 3),
+            "year=2000": F.range("year", lo=2000, hi=2000)}
+
+
+def serve(port, shape: Shape, eng, Q, name: str, filt=None, ef=None,
+          n_one_by_one: int = ONE_BY_ONE):
+    """``name``'s request (REQUEST_FORMS) of Q on ``eng``, the loop and
+    fused drivers on the first ``n_one_by_one`` queries."""
+    first, mode = REQUEST_FORMS[name]
+    q = Q if first is None else Q[first]
+    if name in ("loop", "fused"):
+        q = Q[:n_one_by_one]
+    return eng.search(port["engine"].SearchRequest(
+        query=q, k=shape.k, ef=ef, batch_mode=mode, filter=filt))
+
+
+def _access_rows(res) -> list:
+    """Per-query (n_db, items_fetched) of a result, and the batch's."""
+    rows = [r[2:] for r in _rows(res)]
+    if res.batch_stats is not None:
+        rows.append((res.batch_stats.n_db, res.batch_stats.items_fetched))
+    return rows
+
+
+def run_filters(port, shape: Shape, X, graph, Q) -> dict:
+    """Phase 4g (a): three filters of live selectivity 0.5, 0.1 and 0.02
+    (ef boosted to ``FILTER_EFS``) through the single, ``loop``,
+    ``batched`` and fused drivers at float32 and int8, each on a fresh
+    card engine (a cold 25% tier 2) beside an unfiltered search at the
+    boosted ef on another: no denied id returned; the unfiltered search's
+    ``n_db`` (and at float32 its ``items_fetched``) exactly; float32
+    recall@10 against the brute force over the allowed rows >=
+    FILTER_MIN_RECALL at 0.5 and 0.1 in the drivers that serve 8 queries
+    or more (recorded at 0.02, and for the single query); and, at 0.1,
+    the batched driver's ids on 8 queries against a CPU engine's."""
+    E = port["engine"]
+    meta = filter_metadata(shape.n)
+    store = port["metadata"].MetadataStore(meta)
+    out = {}
+    for precision in ("float32", "int8"):
+        for (fname, filt), want_ef in zip(make_filters(port).items(),
+                                          FILTER_EFS):
+            allow = filt.mask(store)
+            sel = float(allow.mean())
+            o = out[f"{precision} {fname}"] = {"selectivity": sel,
+                                                "recall_at_10": {}}
+            what = f"filter {fname} at {precision}"
+            for name in FILTER_DRIVERS:
+                cfg = persist_config(port, shape, precision, name == "fused")
+                eng = E.WebANNSEngine(X, graph, cfg, metadata=meta)
+                ef_eff = eng._boost_ef(shape.ef, sel)
+                check(ef_eff == want_ef,
+                      f"{what}: ef boosted to {ef_eff}, not {want_ef}")
+                t0 = time.perf_counter()
+                res = serve(port, shape, eng, Q, name, filt)
+                o[f"{name}_s"] = time.perf_counter() - t0
+                base = serve(port, shape, E.WebANNSEngine(X, graph, cfg),
+                             Q, name, ef=ef_eff)
+                ids = np.atleast_2d(res.ids)
+                check(ids.shape[1] == shape.k
+                      and not (~allow)[ids[ids >= 0]].any(),
+                      f"{what}, {name}: no denied id returned")
+                a, b = _access_rows(res), _access_rows(base)
+                if precision == "float32":
+                    check(a == b, f"{what}, {name}: n_db and items_fetched "
+                          f"equal the unfiltered search's ({a} against {b})")
+                elif sel >= 0.1:  # a rerank pool never comes up empty
+                    check([r[0] for r in a] == [r[0] for r in b],
+                          f"{what}, {name}: n_db equals the unfiltered "
+                          "search's")
+                qs = {"single": Q[:1], "loop": Q[:ONE_BY_ONE],
+                      "fused": Q[:ONE_BY_ONE]}.get(name, Q)
+                truth = np.flatnonzero(allow)[port["brute_force_topk"](
+                    X[allow], qs, shape.k)]
+                rec = port["recall_at_k"](ids, truth)
+                o["recall_at_10"][name] = rec
+                o[f"padded_{name}"] = int((ids < 0).sum())
+                # held where a driver serves 8 queries or more (the
+                # reference's acceptance is over 8; one query's recall
+                # moves in steps of 0.1)
+                if precision == "float32" and sel >= 0.1 \
+                        and name != "single":
+                    check(rec >= FILTER_MIN_RECALL,
+                          f"{what}, {name}: recall@10 {rec} >= "
+                          f"{FILTER_MIN_RECALL}")
+            o["ef"] = ef_eff
+        # the card against the CPU on the selectivity-0.1 filter
+        filt = make_filters(port)["cat=3"]
+        got = {}
+        for device in ("cuda", "cpu"):
+            eng = E.WebANNSEngine(X, graph, persist_config(
+                port, shape, precision, False, device), metadata=meta)
+            got[device] = eng.search(E.SearchRequest(
+                query=Q[:ONE_BY_ONE], k=shape.k, filter=filt))
+        agree = _agreement(got["cuda"].ids, got["cpu"].ids)
+        out[f"{precision} cat=3"]["cpu_agreement"] = agree
+        check(agree >= MIN_AGREEMENT,
+              f"filter cat=3 at {precision}: ids agree with the CPU "
+              f"engine ({agree})")
+        check([s_.n_db for s_ in got["cuda"].stats]
+              == [s_.n_db for s_ in got["cpu"].stats],
+              f"filter cat=3 at {precision}: n_db equals the CPU engine's")
+    return out
+
+
+def run_mutation(port, shape: Shape, X, graph, Q, codebook) -> dict:
+    """Phase 4g (b): on card engines at float32, int8 and pq (each on its
+    own copy of phase 4's graph, after one batched search so tier 2 is
+    warm and its step graphs captured): delete a seeded DELETE_FRAC of
+    the rows and the entry point, add N_ADDED rows, upsert N_UPSERTED
+    live rows (host clock each), then serve phase 4's queries and
+    N_NOISY noisy copies of added rows in the single, ``batched``,
+    ``loop`` and fused drivers (the fused engine opened on the mutated
+    engine's index). Checked: the ids the mutations give and take, the
+    entry point moved to a live node, no deleted or upserted-away id
+    returned, float32 finding each copy's row in its top 10
+    (NOISY_MIN_HIT), 8 queries against a CPU engine on the same index
+    and tier 2, and step graphs captured anew after the add and replayed
+    (``step_graph.stats``, ``n_captures()``)."""
+    E, sg, conv = port["engine"], port["step_graph"], port["convert"]
+    rng = np.random.default_rng(MUTATION_SEED)
+    n = shape.n
+
+    def moved(rows):  # the corpus's own spread around existing rows
+        return rows + 0.35 * rng.standard_normal(rows.shape).astype(
+            np.float32)
+
+    dead = np.union1d(rng.choice(n, int(DELETE_FRAC * n), replace=False),
+                      [graph.entry_point])
+    added = moved(X[rng.choice(n, N_ADDED)])
+    up_ids = rng.choice(np.setdiff1d(np.arange(n), dead), N_UPSERTED,
+                        replace=False)
+    up_rows = moved(X[up_ids])
+    copies = rng.choice(N_ADDED, N_NOISY, replace=False)
+    noisy = added[copies] + 0.25 * rng.standard_normal(
+        (N_NOISY, shape.dim)).astype(np.float32)
+    Qm = np.concatenate([Q, noisy]).astype(np.float32)
+    gone = np.union1d(dead, up_ids)
+    out = {}
+    for precision in MUTATION_PRECISIONS:
+        o = out[precision] = {}
+        what = f"mutation at {precision}"
+        source = X
+        if precision == "pq":  # the engine adopts the card-trained codebook
+            source = port["InMemoryBackend"](X)
+            source.codebook = codebook
+        eng = E.WebANNSEngine(source, copy.deepcopy(graph), persist_config(
+            port, shape, precision, False))
+        eng.search(E.SearchRequest(query=Q, k=shape.k))
+        stats0, n_cap0 = dict(sg.stats), sg.n_captures()
+        t0 = time.perf_counter()
+        res_d = eng.delete(dead)
+        o["delete_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_a = eng.add(added)
+        o["add_s"] = time.perf_counter() - t0
+        o["add_rows_per_s"] = N_ADDED / o["add_s"]
+        t0 = time.perf_counter()
+        res_u = eng.upsert(up_ids, up_rows)
+        o["upsert_s"] = time.perf_counter() - t0
+        check(np.array_equal(res_d.deleted, dead)
+              and np.array_equal(res_a.ids, np.arange(n, n + N_ADDED))
+              and np.array_equal(res_u.deleted, np.sort(up_ids))
+              and np.array_equal(res_u.ids, np.arange(
+                  n + N_ADDED, n + N_ADDED + N_UPSERTED))
+              and res_u.n_total == n + N_ADDED + N_UPSERTED
+              and res_u.n_live == n - len(dead) + N_ADDED,
+              f"{what}: the ids the mutations gave and took")
+        check(not eng.tombstones[eng.graph.entry_point]
+              and eng.graph.entry_point != graph.entry_point,
+              f"{what}: the entry point moved to a live node")
+        # a CPU engine on the same index and tier 2
+        cpu = E.WebANNSEngine(eng.index, config=persist_config(
+            port, shape, precision, False, "cpu"))
+        tier2 = conv.cache_to_numpy(eng.store.cache)
+        cpu.store.cache = conv.cache_from_reference(
+            *(tier2[f] for f in conv.CACHE_FIELDS), device="cpu")
+        first = {dev: e.search(E.SearchRequest(query=Qm[:ONE_BY_ONE],
+                                               k=shape.k))
+                 for dev, e in (("cuda", eng), ("cpu", cpu))}
+        o["cpu_agreement"] = _agreement(first["cuda"].ids, first["cpu"].ids)
+        check(o["cpu_agreement"] >= MIN_AGREEMENT,
+              f"{what}: ids agree with the CPU engine ({o['cpu_agreement']})")
+        check([s_.n_db for s_ in first["cuda"].stats]
+              == [s_.n_db for s_ in first["cpu"].stats],
+              f"{what}: n_db equals the CPU engine's")
+        fused = E.WebANNSEngine(eng.index, config=persist_config(
+            port, shape, precision, True))
+        o["hit_at_10"] = {}
+        for name in FILTER_DRIVERS:
+            t0 = time.perf_counter()
+            res = serve(port, shape, fused if name == "fused" else eng, Qm,
+                        name, n_one_by_one=len(Qm))
+            o[f"{name}_s"] = time.perf_counter() - t0
+            ids = np.atleast_2d(res.ids)
+            check(ids.shape[1] == shape.k and (ids >= 0).all()
+                  and not np.isin(ids, gone).any(),
+                  f"{what}, {name}: no deleted or upserted-away id returned")
+            if name != "single":
+                rows = n + copies  # each noisy copy's own row
+                hit = float(np.mean([r in row for r, row in
+                                     zip(rows, ids[len(Q):])]))
+                o["hit_at_10"][name] = hit
+                if precision == "float32":
+                    check(hit >= NOISY_MIN_HIT,
+                          f"{what}, {name}: {hit} of the copies found their "
+                          f"row in the top 10")
+        stats1 = {k: sg.stats[k] - stats0[k] for k in stats0}
+        o["captures_after_add"] = stats1["captures"]
+        o["replays_after_add"] = stats1["replays"]
+        o["n_captures"] = [n_cap0, sg.n_captures()]
+        check(stats1["captures"] > 0 and stats1["replays"] > 0,
+              f"{what}: step graphs captured anew after the add and "
+              f"replayed ({stats1})")
+    return out
+
+
+def run_mutation_filters(port, shape: Shape, X, graph, Q, codebook) -> dict:
+    """Phase 4g: filters (``run_filters``), then mutation
+    (``run_mutation``), each timed on the host clock."""
+    out = {"card": device_line()}
+    t0 = time.perf_counter()
+    out["filters"] = run_filters(port, shape, X, graph, Q)
+    out["filters_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["mutation"] = run_mutation(port, shape, X, graph, Q, codebook)
+    out["mutation_s"] = time.perf_counter() - t0
     return out
 
 
@@ -2521,21 +2943,25 @@ def time_merge(port, shape: Shape, dev, rng, launches, err) -> dict:
     and at the beam merge's own rows (``path_merge_inputs``) a hop, a load
     phase and at B = 1, each beside ``torch.topk`` on the same distances
     (a yardstick only: it has no id dedup and no sentinel rule); and the
-    block-argmin variant at (32, 1,000). Inputs are L2-resident, as on the
-    query path, where the merge reads the row the hop has just written."""
+    block-argmin variant at (32, 1,000); and at the rows a filter's wider
+    beam sends (``filter_merge_shapes``, M > 256: the block-argmin
+    variant on the query path) and a filtered finalize's (a (B, 256)
+    beam, half denied, to k = 10), each beside ``torch.topk``. Inputs are
+    L2-resident, as on the query path, where the merge reads the row the
+    hop has just written."""
     ops, ref = port["ops"], port["ref"]
     B, k = shape.batch, shape.ef
 
-    def bound(B, M):  # bytes: (dist, id) read once, (dist, id, src)
+    def bound(B, M, k=k):  # bytes: (dist, id) read once, (dist, id, src)
         # written; operations: k rounds of M compares (below the bytes)
         return bound_ms(B * M * 8 + B * k * 12, B * k * M)
 
-    def timed(d, i):
+    def timed(d, i, k=k):
         return dict(
             ms=device_ms([lambda: ops.merge_topk(d, i, k)] * 100),
             library_ms=device_ms(
                 [lambda: torch.topk(d, k, dim=1, largest=False)] * 100),
-            bound_ms=bound(*d.shape)[0])
+            bound_ms=bound(*d.shape, k)[0])
 
     Mm = shape.ef + shape.degree
     d, i = merge_inputs(rng, B, Mm, dev)
@@ -2545,6 +2971,12 @@ def time_merge(port, shape: Shape, dev, rng, launches, err) -> dict:
         path[f"{b_}x{m_}"] = timed(*path_merge_inputs(rng, b_, m_, shape.ef,
                                                       dev))
     wide = merge_inputs(rng, B, 1_000, dev)
+    filt = {f"{b_}x{m_}_k{k_}": timed(*path_merge_inputs(rng, b_, m_, k_,
+                                                          dev), k_)
+            for b_, m_, k_ in filter_merge_shapes(shape)}
+    for b_ in (B, 1):
+        filt[f"finalize_{b_}x256_k{shape.k}"] = timed(
+            *finalize_inputs(rng, b_, 256, dev), shape.k)
     return dict(
         name="merge_topk", route="cuda",
         source="src/repro_torch/csrc/merge_topk.cu",
@@ -2558,7 +2990,7 @@ def time_merge(port, shape: Shape, dev, rng, launches, err) -> dict:
             [lambda: torch.topk(d, k, dim=1, largest=False)] * 100),
         call_ms=call_ms(lambda: ops.merge_topk(d, i, k)),
         plain_call_ms=call_ms(lambda: ref.merge_topk_ref(d, i, k)),
-        path=path, wide_shape=[B, 1_000], wide=timed(*wide),
+        path=path, wide_shape=[B, 1_000], wide=timed(*wide), filter=filt,
     )
 
 
@@ -3549,6 +3981,27 @@ def main() -> int:
     record["persistence"] = persist
     print(f"persistence, {persist['card']}, in "
           f"{record['persistence_s']:.1f} s: {json.dumps(persist)}",
+          flush=True)
+    # 4g. metadata filters and mutation on phase 4's corpus and graph
+    stamp(record, "mutation_filters")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    mf = run_mutation_filters(port, shape, X, graph, Q, codebook)
+    counts = ops.launch_counts()
+    record["mutation_filters_s"] = time.perf_counter() - t0
+    for kname in ("hop_step", "gather_distance", "gather_distance_batch",
+                  "dequant_gather_distance", "dequant_gather_distance_batch",
+                  "adc_gather_distance", "adc_gather_distance_batch",
+                  "merge_topk"):
+        check(counts[kname] > 0,
+              f"kernel {kname} launched by the filtered and mutated "
+              f"engines ({counts[kname]})")
+    record["launches"]["mutation_filters"] = counts
+    for kname, n in counts.items():
+        launches[kname] += n
+    record["mutation_filters"] = mf
+    print(f"filters and mutation, {mf['card']}, in "
+          f"{record['mutation_filters_s']:.1f} s: {json.dumps(mf)}",
           flush=True)
     # 4b. the distributed substrate: flat scan at 480k, hnsw mode
     stamp(record, "substrate")

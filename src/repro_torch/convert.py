@@ -6,8 +6,10 @@ the levels and the entry state), and so are a tier-2 cache (the slab at
 its precision, the int8 scales, the id↔slot maps, the clock, the LRU
 stamps and a pq slab's codebook) and a PQ codebook, so the two packages
 exchange them as NumPy arrays and nothing of ``repro`` is imported here.
-So is the distributed substrate's stacked index (``ShardedIndex``), and
-a recsys model's parameter tree (``recsys_from_reference``).
+So is the distributed substrate's stacked index (``ShardedIndex``), a
+recsys model's parameter tree (``recsys_from_reference``), and a
+metadata predicate tree (``filter_from_reference``: a ``Filter`` is a
+frozen dataclass of plain values).
 The parity tests build a graph once with the reference and feed the same
 arrays to both engines, start both from one tier 2, and give both one
 codebook. A quantized tier-3 payload is never carried across: the port
@@ -24,6 +26,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.distributed import ShardedIndex
 from repro_torch.core.graph import HNSWGraph
+from repro_torch.core.metadata import Filter
 from repro_torch.core.pq import PQCodebook
 from repro_torch.core.store import CacheState
 from repro_torch.device import DeviceLike, resolve_device
@@ -76,6 +79,15 @@ def codebook_from_reference(ref_engine) -> PQCodebook:
     if cent.ndim != 3:
         raise ValueError(f"centroids must be (M, K, dsub), got {cent.shape}")
     return PQCodebook(centroids=cent)
+
+
+def filter_from_reference(f) -> Filter:
+    """The port's :class:`Filter` with the tree of a reference ``Filter``
+    (any object with ``op``, ``column``, ``value`` and ``children``),
+    node for node, so one predicate goes to both engines."""
+    return Filter(op=f.op, column=f.column, value=f.value,
+                  children=tuple(filter_from_reference(c)
+                                 for c in f.children))
 
 
 CACHE_FIELDS = ("slab", "scales", "slot_of", "id_of", "clock", "last_used",

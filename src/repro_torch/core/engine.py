@@ -39,29 +39,49 @@ artifact's tombstones (DESIGN.md §8) are honoured on open: every driver
 pre-marks them visited, so a deleted id is never seeded, expanded,
 fetched or returned, and the entry point moves to a live node.
 
+Searches are filterable (DESIGN.md §9): ``SearchRequest.filter`` takes
+a :class:`~repro_torch.core.metadata.Filter` (or one per query of a
+batch), compiled on the host against the engine's metadata into a deny
+mask that is route-but-don't-return: a denied id still routes the
+search and is dropped only at extraction (``search.finalize_topk``,
+through ``ops.merge_topk``) and from a rerank pool, so a filter changes
+which ids return, never the tier-3 accesses at a given ef. The layer-0
+beam widens with the filter's live selectivity
+(``EngineConfig.filter_ef_cap``), snapped to ``EF_SNAP_GRAIN``.
+
+The index is mutable (DESIGN.md §8): ``add`` grows it by incremental
+HNSW insertion on the host (the offline build's level stream
+continued, so the grown graph equals a fresh build's), ``delete``
+tombstones rows (evicted from tier 2 in place) and ``upsert`` composes
+the two under fresh ids; each returns a :class:`MutationResult`. After
+an ``add`` the graph, the id→slot map and the fused payload are new
+tensors, so step graphs captured over the old ones are never replayed.
+Texts live apart from the vectors (paper §4.1, :class:`DocStore`).
+
 The engine runs on the card unless ``EngineConfig.device`` says
-``"cpu"``; without CUDA the default raises. Sharding, metadata filters
-and mutation (``add``, ``delete``, ``upsert``) come with later slices of
-the port and raise ``NotImplementedError`` naming their ROADMAP item.
+``"cpu"``; without CUDA the default raises. The sharded driver
+(``n_shards > 1``) comes with a later slice of the port and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 import uuid as uuid_mod
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import pq, quant
 from repro_torch.core import search as S
-from repro_torch.core.graph import HNSWGraph
-from repro_torch.core.hnsw import build_hnsw
+from repro_torch.core.graph import HNSWGraph, random_levels
+from repro_torch.core.hnsw import build_hnsw, insert_hnsw
 from repro_torch.core.index import Index
-from repro_torch.core.metadata import MetadataStore
+from repro_torch.core.metadata import Filter, MetadataStore
 from repro_torch.core.storage import StorageBackend
 from repro_torch.core.store import (
     EVICT_LRU,
@@ -71,6 +91,11 @@ from repro_torch.core.store import (
     cache_touch,
 )
 from repro_torch.device import resolve_device, synchronize
+
+# a filter's boosted ef is snapped up to this grain, as the reference
+# does (its phases are compiled per beam width): a bounded set of widths
+# keeps the number of captured step graphs bounded too
+EF_SNAP_GRAIN = 8
 
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -167,6 +192,10 @@ class EngineConfig:
     # PQ geometry (precision='pq' only): M subspaces, M code bytes a row;
     # must divide the vector dimension. An adopted codebook's M wins.
     pq_subspaces: int = 8
+    # selectivity-adaptive ef boost of a filtered search (DESIGN.md §9):
+    # with a filter of live selectivity s the layer-0 beam widens to
+    # ef * min(filter_ef_cap, sqrt(1/s)); 1.0 disables the boost
+    filter_ef_cap: float = 4.0
     # not in this slice: must keep its default
     n_shards: int = 1
 
@@ -196,13 +225,30 @@ class EngineConfig:
 class SearchRequest:
     """One search call: a single ``(d,)`` query or a ``(B, d)`` batch.
     ``ef=None`` falls back to ``EngineConfig.ef_search``; ``batch_mode``
-    ('batched' | 'loop') applies to batches only."""
+    ('batched' | 'loop') applies to batches only. ``filter`` restricts
+    the results to metadata-matching ids (DESIGN.md §9): one
+    :class:`Filter`, applied to every query, or for a batch a length-B
+    sequence of ``Optional[Filter]``."""
 
     query: np.ndarray
     k: int = 10
     ef: Optional[int] = None
     batch_mode: str = "batched"
-    filter: None = None  # metadata filters: a later slice
+    filter: Optional[Union[Filter, Sequence[Optional[Filter]]]] = None
+
+
+@dataclasses.dataclass
+class MutationResult:
+    """Result of ``add`` / ``delete`` / ``upsert`` (DESIGN.md §8). Ids
+    are assigned monotonically and never reused: a deleted id stays
+    tombstoned, an upsert's replacements come back under fresh ids.
+    ``n_total`` is the size of the id space, ``n_live`` the rows a
+    search can still return."""
+
+    ids: np.ndarray  # ids given to the added rows ((k,) int64)
+    deleted: np.ndarray  # ids this call newly tombstoned
+    n_live: int
+    n_total: int
 
 
 @dataclasses.dataclass
@@ -231,6 +277,7 @@ class WebANNSEngine:
         source: Union[np.ndarray, StorageBackend, Index],
         graph: Optional[HNSWGraph] = None,
         config: Optional[EngineConfig] = None,
+        texts: Optional[List[str]] = None,
         metadata: Optional[Union[MetadataStore, Dict]] = None,
     ):
         self.config = config or EngineConfig()
@@ -307,8 +354,11 @@ class WebANNSEngine:
         # scales, made at its first query
         self._payload: Optional[Tuple[torch.Tensor,
                                       Optional[torch.Tensor]]] = None
+        # texts live apart from the vectors and are never read by a
+        # search (paper §4.1)
+        self.doc_store = DocStore(texts) if texts is not None else None
         # per-id metadata columns (host-resident, DESIGN.md §9), carried
-        # with the artifact; filters that read them come with ROADMAP A.5
+        # with the artifact and read only when a filter compiles
         if metadata is not None and not isinstance(metadata, MetadataStore):
             metadata = MetadataStore(metadata, n_rows=self.n)
         self.metadata: Optional[MetadataStore] = metadata
@@ -330,10 +380,8 @@ class WebANNSEngine:
                 f"backend holds {self.n}"
             )
         # the mask on the device, or None where nothing is tombstoned
-        self._tombs_dev: Optional[torch.Tensor] = (
-            torch.as_tensor(self.tombstones, device=self.device)
-            if self.tombstones.any() else None
-        )
+        self._tombs_dev: Optional[torch.Tensor] = None
+        self._upload_tombstones()
         # the HNSW level stream: (seed, draws) continue the offline
         # build's levels on insertion (exact for build() and an Index,
         # (0, n) for a bare graph, as in the reference)
@@ -355,6 +403,7 @@ class WebANNSEngine:
         M: int = 16,
         ef_construction: int = 200,
         config: Optional[EngineConfig] = None,
+        texts: Optional[List[str]] = None,
         seed: int = 0,
         metadata: Optional[Union[MetadataStore, Dict]] = None,
     ) -> "WebANNSEngine":
@@ -365,7 +414,7 @@ class WebANNSEngine:
             vectors, M=M, ef_construction=ef_construction,
             metric=config.metric, seed=seed,
         )
-        eng = cls(vectors, g, config, metadata=metadata)
+        eng = cls(vectors, g, config, texts, metadata=metadata)
         # the exact level stream and insertion knobs, as the reference's
         # build records them (they persist in the manifest)
         eng._level_seed, eng._levels_drawn = seed, len(vectors)
@@ -375,18 +424,19 @@ class WebANNSEngine:
     @classmethod
     def from_index(
         cls, index: Index, config: Optional[EngineConfig] = None,
+        texts: Optional[List[str]] = None,
     ) -> "WebANNSEngine":
         """Session over an index artifact. The index's metric is
         authoritative: a differing ``config.metric`` is overridden."""
         config = config or EngineConfig(metric=index.metric)
         if config.metric != index.metric:
             config = dataclasses.replace(config, metric=index.metric)
-        return cls(index, config=config)
+        return cls(index, config=config, texts=texts)
 
     @classmethod
     def open(
         cls, path: str, config: Optional[EngineConfig] = None,
-        mmap: bool = True,
+        texts: Optional[List[str]] = None, mmap: bool = True,
     ) -> "WebANNSEngine":
         """Reopen a saved index (either package's): the paper's
         initialization-stage bulk load, one access per shard, the graph
@@ -395,7 +445,7 @@ class WebANNSEngine:
         shards through host memory). No HNSW rebuild; a pq artifact's
         codebook is adopted, never retrained."""
         resolve_device(config.device if config is not None else None)
-        return cls.from_index(Index.load(path, mmap=mmap), config)
+        return cls.from_index(Index.load(path, mmap=mmap), config, texts)
 
     def save(
         self,
@@ -458,14 +508,245 @@ class WebANNSEngine:
             return  # empty engine: searches short-circuit to -1 results
         self.graph.entry_point = int(live[np.argmax(self.graph.levels[live])])
 
-    def add(self, vectors, *args, **kwargs):
-        raise _not_in_slice("add", "Mutation and filters")
+    def _upload_tombstones(self) -> None:
+        """The tombstone mask on the device (None while nothing is
+        tombstoned), made anew after every mutation: a delete sets bits,
+        an add lengthens it."""
+        self._tombs_dev = (
+            torch.as_tensor(self.tombstones, device=self.device)
+            if self.tombstones.any() else None
+        )
 
-    def delete(self, ids):
-        raise _not_in_slice("delete", "Mutation and filters")
+    # ------------------------------------------------------ filtered search
 
-    def upsert(self, ids, vectors, *args, **kwargs):
-        raise _not_in_slice("upsert", "Mutation and filters")
+    def _compile_filter(self, filt: Filter) -> Tuple[np.ndarray, float]:
+        """One predicate to (deny mask, live selectivity), on the host:
+        the allow-bitmap reads the metadata columns, never tier 3, so a
+        filter costs no access. Selectivity is over the live ids: it
+        drives the ef boost and the empty-result return."""
+        if not isinstance(filt, Filter):
+            raise TypeError(
+                f"SearchRequest.filter must be a Filter (or a sequence "
+                f"of them for a batch), got {type(filt).__name__}"
+            )
+        allow = np.asarray(filt.mask(self.metadata), bool)
+        if allow.shape != (self.n,):
+            raise ValueError(
+                f"filter mask covers {allow.shape[0]} ids, index holds "
+                f"{self.n}"
+            )
+        live_allowed = int((allow & ~self.tombstones).sum())
+        sel = live_allowed / max(1, self.n_live)
+        return ~allow, sel
+
+    def _boost_ef(self, ef: int, sel: float) -> int:
+        """Selectivity-adaptive beam width: ef * min(cap, sqrt(1/sel)),
+        snapped up to ``EF_SNAP_GRAIN`` and at most the id space
+        (DESIGN.md §9)."""
+        if sel >= 1.0:
+            return ef
+        boost = min(self.config.filter_ef_cap,
+                    math.sqrt(1.0 / max(sel, 1e-9)))
+        eff = int(math.ceil(ef * max(1.0, boost)))
+        eff += (-eff) % EF_SNAP_GRAIN  # snap up: a wider beam only helps
+        return min(self.n, eff)
+
+    def _normalize_filters(
+        self, filt, B: int
+    ) -> Optional[List[Optional[Filter]]]:
+        """Request-level filter → per-query list (length B) or None."""
+        if filt is None:
+            return None
+        if isinstance(filt, Filter):
+            return [filt] * B
+        filters = list(filt)
+        if len(filters) != B:
+            raise ValueError(
+                f"{len(filters)} filters for a batch of {B} queries — "
+                "pass one Filter (broadcast) or exactly one per query"
+            )
+        if all(f is None for f in filters):
+            return None
+        return filters
+
+    # --------------------------------------------------- mutation lifecycle
+
+    def _encode_payload(
+        self, X: np.ndarray
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Rows as the fused driver's device payload holds them: pq codes
+        of the frozen codebook, or the port's quantization at the
+        session's precision (int8 with its scales). Both codecs work row
+        by row, so rows encoded alone equal the same rows encoded in the
+        whole table."""
+        if self.pq_codebook is not None:
+            codes = pq.encode_np(X, self.pq_codebook.centroids)
+            return torch.as_tensor(codes, device=self.device), None
+        payload, scales = quant.quantize_np(X, self.config.precision)
+        return (torch.as_tensor(payload, device=self.device),
+                torch.as_tensor(scales, device=self.device)
+                if payload.dtype == np.int8 else None)
+
+    def add(
+        self,
+        vectors: np.ndarray,
+        texts: Optional[List[str]] = None,
+        metadata: Optional[Dict] = None,
+    ) -> MutationResult:
+        """Insert vectors into the live index, no rebuild (DESIGN.md §8).
+
+        Levels continue the offline build's RNG stream and the insertion
+        is ``build_hnsw``'s own loop on the host, so a graph grown by
+        ``add`` equals a fresh build over the concatenated corpus when no
+        delete intervenes. New ids continue from ``n_total`` (deleted ids
+        are never reused); tombstoned nodes are excluded from link
+        selection; the changed rows are kept for a delta save. Then the
+        per-id state grows: the tombstone mask, tier 2's id→slot map,
+        the device graph, and a fused payload (the new rows encoded at
+        the session's precision). ``metadata`` maps column → one value a
+        new row, validated before anything is mutated."""
+        vectors = np.atleast_2d(np.asarray(vectors, dtype=np.float32))
+        if vectors.shape[0] == 0:
+            return MutationResult(ids=np.empty(0, np.int64),
+                                  deleted=np.empty(0, np.int64),
+                                  n_live=self.n_live, n_total=self.n)
+        if vectors.shape[1] != self.dim:
+            raise ValueError(
+                f"added vectors have dim {vectors.shape[1]}, index holds "
+                f"dim {self.dim}"
+            )
+        if texts is not None and len(texts) != vectors.shape[0]:
+            raise ValueError(
+                f"{len(texts)} texts for {vectors.shape[0]} vectors"
+            )
+        if metadata is not None and self.metadata is None:
+            self.metadata = MetadataStore(n_rows=self.n)
+        if self.metadata is not None:
+            # a bad metadata dict must fail before anything is committed
+            self.metadata.validate_extend(vectors.shape[0], metadata)
+        n_new = vectors.shape[0]
+        restart = self.n_live == 0  # dead graph: re-seed the entry point
+        new_ids = self.external.append(vectors)
+        # continue the build-time level stream: PCG64.advance lands where
+        # drawing (and dropping) the earlier draws would
+        bitgen = np.random.PCG64(self._level_seed)
+        if self._levels_drawn:
+            bitgen.advance(self._levels_drawn)
+        levels_new = random_levels(n_new, self.graph.M,
+                                   np.random.Generator(bitgen))
+        self._levels_drawn += n_new
+        exclude = None
+        if self.tombstones.any():
+            exclude = np.concatenate(
+                [self.tombstones, np.zeros(n_new, dtype=bool)])
+        self.graph, dirty = insert_hnsw(
+            self.graph, self.external.vectors, new_ids, levels_new,
+            ef_construction=self.insert_ef_construction,
+            heuristic=self.insert_heuristic, exclude=exclude,
+            restart_entry=restart,
+        )
+        self._dirty_nodes |= dirty
+        self.tombstones = np.concatenate(
+            [self.tombstones, np.zeros(n_new, dtype=bool)])
+        self.n = self.external.n_items
+        self.neighbors = torch.as_tensor(
+            np.asarray(self.graph.neighbors, np.int32), device=self.device)
+        self.store.grow(self.n)
+        if self._payload is not None:
+            rows, scales = self._encode_payload(vectors)
+            old_rows, old_scales = self._payload
+            self._payload = (
+                torch.cat([old_rows, rows]),
+                None if scales is None else torch.cat([old_scales, scales]),
+            )
+        if texts is not None and self.doc_store is None:
+            self.doc_store = DocStore([None] * (self.n - n_new))
+        if self.doc_store is not None:
+            self.doc_store.extend(
+                texts if texts is not None else [None] * n_new)
+        if self.metadata is not None:
+            self.metadata.extend(n_new, metadata)  # validated above
+        self._upload_tombstones()
+        if self.tombstones[self.graph.entry_point]:
+            self._repair_entry()
+        return MutationResult(
+            ids=new_ids, deleted=np.empty(0, np.int64),
+            n_live=self.n_live, n_total=self.n,
+        )
+
+    def delete(self, ids: Union[int, Sequence[int]]) -> MutationResult:
+        """Tombstone ``ids``: they leave tier 2 at once (in place) and
+        every driver's search (pre-visited: never seeded, expanded,
+        fetched or returned). The graph keeps its links and the rows
+        their payload (ids are never reused). Deleting a tombstoned id
+        is a no-op."""
+        ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
+        if ids.size and (ids.min() < 0 or ids.max() >= self.n):
+            raise ValueError(
+                f"delete ids out of range [0, {self.n}): "
+                f"{ids[(ids < 0) | (ids >= self.n)][:4]}…"
+            )
+        fresh = np.unique(ids[~self.tombstones[ids]])
+        self.tombstones[fresh] = True
+        if fresh.size:
+            self.store.invalidate(fresh)
+            self._upload_tombstones()
+            if self.tombstones[self.graph.entry_point]:
+                self._repair_entry()
+        return MutationResult(
+            ids=np.empty(0, np.int64), deleted=fresh,
+            n_live=self.n_live, n_total=self.n,
+        )
+
+    def upsert(
+        self,
+        ids: Union[int, Sequence[int]],
+        vectors: np.ndarray,
+        texts: Optional[List[str]] = None,
+        metadata: Optional[Dict] = None,
+    ) -> MutationResult:
+        """Replace rows: tombstone ``ids`` and add ``vectors`` under fresh
+        ids (``result.ids``, aligned with ``vectors``; ``result.deleted``
+        the retired ones). Everything ``add`` would reject is checked
+        before the delete; with no ``metadata`` the replacements inherit
+        the retired rows'."""
+        ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
+        vectors = np.atleast_2d(np.asarray(vectors, dtype=np.float32))
+        if len(ids) != vectors.shape[0]:
+            raise ValueError(
+                f"upsert replaces {len(ids)} ids with "
+                f"{vectors.shape[0]} vectors — counts must match"
+            )
+        if vectors.shape[1] != self.dim:
+            raise ValueError(
+                f"upserted vectors have dim {vectors.shape[1]}, index "
+                f"holds dim {self.dim}"
+            )
+        if texts is not None and len(texts) != vectors.shape[0]:
+            raise ValueError(
+                f"{len(texts)} texts for {vectors.shape[0]} vectors"
+            )
+        if metadata is None and self.metadata is not None:
+            metadata = {
+                name: col[ids]
+                for name, col in self.metadata.to_columns().items()
+            }
+        if metadata is not None:
+            (self.metadata or MetadataStore(n_rows=self.n)) \
+                .validate_extend(vectors.shape[0], metadata)
+        deleted = self.delete(ids).deleted
+        added = self.add(vectors, texts=texts, metadata=metadata)
+        return MutationResult(
+            ids=added.ids, deleted=deleted,
+            n_live=self.n_live, n_total=self.n,
+        )
+
+    def get_texts(self, ids: np.ndarray) -> List[Optional[str]]:
+        """Texts for ``ids``; None for unknown, padded (-1) and
+        tombstoned ids (deleted content never comes back by id)."""
+        if self.doc_store is None:
+            return [None] * len(ids)
+        return self.doc_store.get(ids, tombstones=self.tombstones)
 
     # ------------------------------------------------------------ sizing
 
@@ -681,28 +962,22 @@ class WebANNSEngine:
         """The tier-3 payload on the device at the session's precision
         (quantized by the port's own codec; int8 with its scales; at pq
         the (N, M) uint8 codes alone, whose codebook is tier 2's), read
-        from the storage medium once, uncounted, as an init-stage load."""
+        from the storage medium once, uncounted, as an init-stage load;
+        ``add`` appends the new rows' encoding."""
         if self._payload is None:
-            X = self.external.base_backend.fetch(np.arange(self.n))
-            if self.pq_codebook is not None:
-                codes = pq.encode_np(X, self.pq_codebook.centroids)
-                self._payload = (torch.as_tensor(codes, device=self.device),
-                                 None)
-                return self._payload
-            payload, scales = quant.quantize_np(X, self.config.precision)
-            self._payload = (
-                torch.as_tensor(payload, device=self.device),
-                torch.as_tensor(scales, device=self.device)
-                if payload.dtype == np.int8 else None,
-            )
+            self._payload = self._encode_payload(
+                self.external.base_backend.fetch(np.arange(self.n)))
         return self._payload
 
     def _query_fused(
         self, q: np.ndarray, k: int, ef: int,
+        banned: Optional[torch.Tensor] = None,
     ) -> Tuple[np.ndarray, np.ndarray, QueryStats]:
         """Fused driver body: the whole query on the device-resident
         payload, the tier-3 cost model applied analytically, then the
-        exact rerank of a quantized session from tier 3 on the host."""
+        exact rerank of a quantized session from tier 3 on the host.
+        ``banned`` ((N,) bool) drops denied ids at the extraction, so the
+        rerank pool holds allowed ids only."""
         cfg = self.config
         stats = QueryStats()
         payload, scales = self._fused_payload()
@@ -717,6 +992,7 @@ class WebANNSEngine:
             payload, scales, self.neighbors, self.graph.entry_point,
             self.store.cache, k=k_run, ef=ef, metric=cfg.metric,
             eviction=self.store.eviction, tombstones=self._tombs_dev,
+            banned=banned,
         )
         # the search's only reads on the host: its result and counters
         n_db, n_fetch = (int(c) for c in torch.stack([n_db, n_fetch]).cpu())
@@ -742,15 +1018,32 @@ class WebANNSEngine:
 
     def _search_one(
         self, q: np.ndarray, k: int, ef: Optional[int],
+        filt: Optional[Filter] = None, boost: bool = True,
     ) -> Tuple[np.ndarray, np.ndarray, QueryStats]:
-        """Single-query driver body. Returns (ids, dists, stats)."""
+        """Single-query driver body. Returns (ids, dists, stats).
+
+        ``filt`` is route-but-don't-return (DESIGN.md §9): the search is
+        the unfiltered one at the same effective ef, and denied ids are
+        dropped only at extraction and from the rerank pool. The
+        effective ef widens with the filter's live selectivity
+        (``_boost_ef``) unless the caller already widened it
+        (``boost=False``, the loop driver's shared batch ef)."""
         cfg = self.config
         ef = ef or cfg.ef_search
+        empty = (np.full(k, -1, np.int32), np.full(k, np.inf, np.float32),
+                 QueryStats())
         if self.n_live == 0:  # fully-tombstoned index: nothing to return
-            return (np.full(k, -1, np.int32),
-                    np.full(k, np.inf, np.float32), QueryStats())
+            return empty
+        banned = None
+        if filt is not None:
+            banned_np, sel = self._compile_filter(filt)
+            if sel <= 0.0:  # nothing can match: no search
+                return empty
+            if boost:
+                ef = self._boost_ef(ef, sel)
+            banned = torch.as_tensor(banned_np, device=self.device)
         if cfg.fused and cfg.mode == "webanns":
-            return self._query_fused(q, k, ef)
+            return self._query_fused(q, k, ef, banned)
         eager = cfg.mode == "webanns-base"
         stats = QueryStats()
         qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
@@ -771,26 +1064,43 @@ class WebANNSEngine:
         stats.n_visited = stats.n_dist  # every visited id gets a distance
         if self._rerank_active():
             pool = min(st.beam.ef, quant.rerank_pool(k, cfg.rerank_alpha))
+            # a filtered pool holds allowed ids only: a denied id never
+            # reaches the rerank fetch
+            p_dists, p_ids = self._extract(st, pool, banned)
             db0 = self.external.stats.n_db
             f0 = self.external.stats.items_fetched
             ids, dists = self._rerank_exact(
-                q, st.beam.ids[:pool].cpu().numpy(),
-                st.beam.dists[:pool].cpu().numpy(), k,
+                q, p_ids.cpu().numpy(), p_dists.cpu().numpy(), k,
             )
             stats.n_db += self.external.stats.n_db - db0
             stats.items_fetched += self.external.stats.items_fetched - f0
         else:
-            ids = st.beam.ids[:k].cpu().numpy()
-            dists = st.beam.dists[:k].cpu().numpy()
+            dists, ids = (t.cpu().numpy()
+                          for t in self._extract(st, k, banned))
         stats.t_db = self.external.stats.modeled_time - t_db0
         return ids, dists, stats
 
+    @staticmethod
+    def _extract(st: S.SearchState, k: int,
+                 banned: Optional[torch.Tensor]):
+        """The first k of a layer-0 beam as (dists, ids); with a deny
+        mask the top k of its allowed entries (``finalize_topk``)."""
+        if banned is None:
+            return st.beam.dists[..., :k], st.beam.ids[..., :k]
+        return S.finalize_topk(st, k, banned)
+
     def _search_many(
         self, Q: np.ndarray, k: int, ef: Optional[int], batch_mode: str,
+        filt=None,
     ) -> Tuple[np.ndarray, np.ndarray, List[QueryStats]]:
         """Batch driver body (DESIGN.md §5). Both modes return identical
         (ids, dists); per-query ``QueryStats.n_db`` records each query's
-        demand, ``self.last_batch_stats`` the batch's actual accesses."""
+        demand, ``self.last_batch_stats`` the batch's actual accesses.
+
+        Filters compile to one (N,) deny mask (a broadcast ``Filter``) or
+        a (B, N) matrix (one per query). The batch shares one effective
+        ef, the widest boost of its filters, in both modes, so the loop
+        and the batched drivers stay equal (DESIGN.md §9)."""
         cfg = self.config
         ef = ef or cfg.ef_search
         Q = np.asarray(Q, dtype=np.float32)
@@ -800,14 +1110,37 @@ class WebANNSEngine:
             return (np.full((B, k), -1, np.int32),
                     np.full((B, k), np.inf, np.float32),
                     [QueryStats() for _ in range(B)])
+        filters = self._normalize_filters(filt, B)
+        banned_rows: Optional[List[Optional[np.ndarray]]] = None
+        shared_banned: Optional[np.ndarray] = None
+        if filters is not None:
+            if isinstance(filt, Filter):  # broadcast: compiled once
+                shared_banned, sel = self._compile_filter(filt)
+                banned_rows = [shared_banned] * B
+                if sel > 0.0:
+                    ef = max(ef, self._boost_ef(ef, sel))
+            else:
+                banned_rows = []
+                ef_eff = ef
+                for f in filters:
+                    if f is None:
+                        banned_rows.append(None)
+                        continue
+                    banned_np, sel = self._compile_filter(f)
+                    banned_rows.append(banned_np)
+                    if sel > 0.0:
+                        ef_eff = max(ef_eff, self._boost_ef(ef, sel))
+                ef = ef_eff
         # a fused engine runs its batch once a query (there is no fused
         # batch driver), as the reference does
         if cfg.fused and cfg.mode == "webanns" and batch_mode == "batched":
             batch_mode = "loop"
         if batch_mode == "loop":
             out_i, out_d, out_s = [], [], []
-            for q in Q:
-                i, d, s = self._search_one(q, k, ef)
+            for b, q in enumerate(Q):
+                i, d, s = self._search_one(
+                    q, k, ef, filt=None if filters is None else filters[b],
+                    boost=False)
                 out_i.append(i)
                 out_d.append(d)
                 out_s.append(s)
@@ -827,6 +1160,15 @@ class WebANNSEngine:
         bstats = BatchStats(batch_size=B)
         per_stats = [QueryStats() for _ in range(B)]
         Qt = torch.as_tensor(Q, device=self.device)
+        banned = None
+        if shared_banned is not None:
+            banned = torch.as_tensor(shared_banned, device=self.device)
+        elif banned_rows is not None:
+            banned_np = np.zeros((B, self.n), bool)
+            for b, row in enumerate(banned_rows):
+                if row is not None:
+                    banned_np[b] = row
+            banned = torch.as_tensor(banned_np, device=self.device)
         t_db0 = self.external.stats.modeled_time
         luts = self._luts(Qt)
         entry = np.full((B, 1), self.graph.entry_point, np.int32)
@@ -849,21 +1191,22 @@ class WebANNSEngine:
         hops = st.n_hops.cpu().numpy()
         ndist = st.n_dist.cpu().numpy()
         if self._rerank_active():
-            # ONE shared tier-3 access reranks the whole batch
+            # ONE shared tier-3 access reranks the whole batch; filtered
+            # pools hold allowed ids only
             pool = min(st.beam.ef, quant.rerank_pool(k, cfg.rerank_alpha))
+            p_dists, p_ids = self._extract(st, pool, banned)
             db0 = self.external.stats.n_db
             f0 = self.external.stats.items_fetched
             ids, dists = self._rerank_exact_batch(
-                Q, st.beam.ids[:, :pool].cpu().numpy(),
-                st.beam.dists[:, :pool].cpu().numpy(), k,
+                Q, p_ids.cpu().numpy(), p_dists.cpu().numpy(), k,
             )
             bstats.n_db += self.external.stats.n_db - db0
             bstats.items_fetched += self.external.stats.items_fetched - f0
             for b in range(B):  # every query demanded the shared rerank
                 per_stats[b].n_db += 1
         else:
-            ids = st.beam.ids[:, :k].cpu().numpy()
-            dists = st.beam.dists[:, :k].cpu().numpy()
+            dists, ids = (t.cpu().numpy()
+                          for t in self._extract(st, k, banned))
         bstats.t_db = self.external.stats.modeled_time - t_db0
         for b in range(B):
             per_stats[b].n_hops += int(hops[b])
@@ -877,11 +1220,16 @@ class WebANNSEngine:
 
     def search(self, request: SearchRequest) -> SearchResult:
         """Serve one :class:`SearchRequest` — the canonical entry point."""
-        if request.filter is not None:
-            raise _not_in_slice("SearchRequest.filter", "Mutation and filters")
         q = np.asarray(request.query, dtype=np.float32)
         if q.ndim == 1:
-            ids, dists, stats = self._search_one(q, request.k, request.ef)
+            filt = request.filter
+            if filt is not None and not isinstance(filt, Filter):
+                raise ValueError(
+                    "a single-query request takes a single Filter, not "
+                    f"{type(filt).__name__}"
+                )
+            ids, dists, stats = self._search_one(q, request.k, request.ef,
+                                                 filt=filt)
             return SearchResult(ids=ids, dists=dists, stats=stats)
         if q.ndim != 2:
             raise ValueError(
@@ -889,8 +1237,32 @@ class WebANNSEngine:
             )
         ids, dists, stats = self._search_many(
             q, request.k, request.ef, request.batch_mode,
+            filt=request.filter,
         )
         return SearchResult(
             ids=ids, dists=dists, stats=stats,
             batch_stats=self.last_batch_stats,
         )
+
+
+class DocStore:
+    """Id → text store, kept apart from the embeddings (paper §4.1)."""
+
+    def __init__(self, texts: List[Optional[str]]):
+        self._texts = list(texts)
+
+    def extend(self, texts: List[Optional[str]]) -> None:
+        """Append texts for newly added ids (DESIGN.md §8)."""
+        self._texts.extend(texts)
+
+    def get(self, ids, tombstones=None) -> List[Optional[str]]:
+        """Texts by id; out-of-range ids come back None, and so do the
+        ids that ``tombstones`` ((N,) bool) marks deleted."""
+        out = []
+        for i in np.asarray(ids).tolist():
+            i = int(i)
+            dead = (tombstones is not None and 0 <= i < len(tombstones)
+                    and bool(tombstones[i]))
+            out.append(self._texts[i]
+                       if 0 <= i < len(self._texts) and not dead else None)
+        return out

@@ -6,8 +6,10 @@ algorithms 1/3/4/5 (INSERT, SEARCH-LAYER, SELECT-NEIGHBORS-HEURISTIC,
 KNN-SEARCH) and runs on the host in both packages; only the online query
 path runs on the device (:mod:`repro_torch.core.search`). The code is the
 reference's, line for line, so the same seed gives ``array_equal``
-neighbors, levels and entry point. Incremental insertion comes with the
-mutation slice of the port.
+neighbors, levels and entry point. Incremental insertion
+(:func:`insert_hnsw`, the engine's ``add``) runs the same per-point
+loop, so a graph grown by inserts equals the offline build over the
+concatenated corpus.
 """
 
 from __future__ import annotations
@@ -329,6 +331,81 @@ def build_hnsw(
         )
     g.entry_point, g.max_level = entry, max_level
     return g
+
+
+def insert_hnsw(
+    g: HNSWGraph,
+    X: np.ndarray,  # (N_total, d) — full payload INCLUDING the new rows
+    new_ids: Sequence[int],  # contiguous range [g.size, N_total)
+    levels_new: np.ndarray,  # (len(new_ids),) int32 — pre-sampled levels
+    ef_construction: int = 200,
+    heuristic: bool = True,
+    exclude: Optional[np.ndarray] = None,  # (N_total,) bool — tombstoned
+    restart_entry: bool = False,
+) -> Tuple[HNSWGraph, set]:
+    """Incremental INSERT of new points into an existing graph.
+
+    Runs exactly the per-point insert loop of :func:`build_hnsw`
+    (level sampling is the caller's job — the engine continues the
+    build-time level stream), so growing an index one ``add()`` at a
+    time reproduces the full offline build bit-for-bit when no deletes
+    intervene (tested in ``tests/test_mutation.py``). Bidirectional
+    link repair is the same ``_add_link`` shrink rule construction uses.
+
+    Returns ``(grown_graph, dirty)`` where ``dirty`` is the set of
+    PRE-EXISTING node ids whose neighbor lists changed — the rows a
+    delta save must rewrite (new rows land in appended shards).
+    The input graph's arrays are not aliased by the result.
+
+    ``restart_entry`` handles the fully-tombstoned graph: the first new
+    point becomes the entry (exactly how :func:`build_hnsw` seeds node
+    0 — inserted without a search, since there is nothing live to link
+    to) and the remaining points insert against it. Without it, inserts
+    into a dead graph would come out as disconnected singletons.
+    """
+    new_ids = np.asarray(new_ids, dtype=np.int64)
+    if new_ids.size == 0:
+        return g, set()
+    X = np.asarray(X, dtype=np.float32)
+    if int(new_ids[0]) != g.size or not np.all(np.diff(new_ids) == 1):
+        raise ValueError(
+            f"new_ids must be the contiguous range [{g.size}, "
+            f"{g.size + len(new_ids)}), got {new_ids[:4]}…"
+        )
+    n_total = g.size + len(new_ids)
+    if X.shape[0] != n_total:
+        raise ValueError(
+            f"X must hold all {n_total} rows (old + new), got {X.shape[0]}"
+        )
+    levels_new = np.asarray(levels_new, dtype=np.int32)
+    n_layers = max(g.n_layers, int(levels_new.max()) + 1)
+    neighbors = np.full(
+        (n_layers, n_total, g.max_degree), PAD, dtype=np.int32
+    )
+    neighbors[: g.n_layers, : g.size] = g.neighbors
+    levels = np.concatenate([g.levels, levels_new])
+    deg = (neighbors != PAD).sum(axis=2, dtype=np.int32)
+    visited = _VisitedPool(n_total)
+    dirty: set = set()
+    entry, max_level = int(g.entry_point), int(g.max_level)
+    start = 0
+    if restart_entry:
+        # dead graph: the first new point IS the new entry; max_level
+        # restarts at its level, so searches skip the dead top layers
+        entry, max_level = int(new_ids[0]), int(levels_new[0])
+        start = 1
+    for i in new_ids[start:]:
+        entry, max_level = _insert_point(
+            X, neighbors, deg, levels, int(i), entry, max_level, g.M,
+            ef_construction, g.metric, heuristic, visited,
+            exclude=exclude, dirty=dirty,
+        )
+    g2 = HNSWGraph(
+        neighbors=neighbors, levels=levels, entry_point=entry,
+        max_level=max_level, M=g.M, metric=g.metric,
+    )
+    dirty.difference_update(int(i) for i in new_ids)
+    return g2, dirty
 
 
 # ------------------------------------------------------------ knn search

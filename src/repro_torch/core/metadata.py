@@ -1,20 +1,26 @@
-"""Per-id metadata columns (the port's copy of :class:`MetadataStore`
-and its helpers from ``repro.core.metadata``, DESIGN.md §9).
+"""Per-id metadata columns and the predicate DSL behind filtered search
+(the port's copy of ``repro.core.metadata``, DESIGN.md §9; NumPy only).
 
-Columns are plain NumPy arrays (int64 / float64 / unicode) keyed by
-vector id, host-resident by design: they are consulted only when a
-filter compiles to its allow-bitmap, never during traversal. An index
-artifact carries them as ``metadata_{name}.npy`` files
-(:func:`repro_torch.core.storage.save_metadata`), so a reopened index
-keeps its columns and their dtypes. The predicate DSL (``Filter``) and
-filtered search come with the port's mutation and filter slice
-(ROADMAP A.5).
+- :class:`MetadataStore`: typed columns (int64 / float64 / unicode)
+  keyed by vector id, host-resident by design: they are consulted only
+  when a filter compiles to its allow-bitmap, never during traversal,
+  so filtering adds no tier-3 access. They grow with the id space
+  (``add``/``upsert`` append rows; a deleted id keeps its row). An index
+  artifact carries them as ``metadata_{name}.npy`` files
+  (:func:`repro_torch.core.storage.save_metadata`).
+- :class:`Filter`: a composable predicate tree (``Filter.eq / in_ /
+  range / and_ / or_ / not_`` and ``& | ~``), compiled on the host by
+  :meth:`Filter.mask` to one ``(N,)`` allow-bitmap. Its complement is
+  the search's deny mask, route-but-don't-return: a denied id still
+  routes the traversal but never reaches the returned top-k or a
+  rerank pool (:func:`repro_torch.core.search.finalize_topk`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -237,3 +243,92 @@ class MetadataStore:
     def to_columns(self) -> Dict[str, np.ndarray]:
         """The raw column arrays (persistence uses this)."""
         return dict(self._cols)
+
+
+# ----------------------------------------------------------- predicate DSL
+
+
+@dataclasses.dataclass(frozen=True)
+class Filter:
+    """One predicate tree node. Build with the classmethod constructors
+    (``Filter.eq("user", 3) & Filter.range("ts", lo=10)``); compile with
+    :meth:`mask` to the per-query allow-bitmap."""
+
+    op: str  # 'eq' | 'in' | 'range' | 'and' | 'or' | 'not'
+    column: Optional[str] = None
+    value: object = None
+    children: Tuple["Filter", ...] = ()
+
+    # ------------------------------------------------------ constructors
+
+    @classmethod
+    def eq(cls, column: str, value) -> "Filter":
+        return cls(op="eq", column=column, value=value)
+
+    @classmethod
+    def in_(cls, column: str, values: Sequence) -> "Filter":
+        return cls(op="in", column=column, value=tuple(values))
+
+    @classmethod
+    def range(cls, column: str, lo=None, hi=None) -> "Filter":
+        """Inclusive-bounds range predicate; either bound may be None."""
+        if lo is None and hi is None:
+            raise ValueError("Filter.range needs at least one bound")
+        return cls(op="range", column=column, value=(lo, hi))
+
+    @classmethod
+    def and_(cls, *filters: "Filter") -> "Filter":
+        return cls(op="and", children=tuple(filters))
+
+    @classmethod
+    def or_(cls, *filters: "Filter") -> "Filter":
+        return cls(op="or", children=tuple(filters))
+
+    @classmethod
+    def not_(cls, f: "Filter") -> "Filter":
+        return cls(op="not", children=(f,))
+
+    def __and__(self, other: "Filter") -> "Filter":
+        return Filter.and_(self, other)
+
+    def __or__(self, other: "Filter") -> "Filter":
+        return Filter.or_(self, other)
+
+    def __invert__(self) -> "Filter":
+        return Filter.not_(self)
+
+    # ------------------------------------------------------- compilation
+
+    def mask(self, store: Optional[MetadataStore]) -> np.ndarray:
+        """Compile to the ``(N,)`` bool allow-bitmap against ``store``."""
+        if store is None:
+            raise ValueError(
+                "cannot evaluate a Filter: the engine has no metadata "
+                "(pass metadata= at build/add time)"
+            )
+        if self.op == "and":
+            out = np.ones(store.n_rows, bool)
+            for c in self.children:
+                out &= c.mask(store)
+            return out
+        if self.op == "or":
+            out = np.zeros(store.n_rows, bool)
+            for c in self.children:
+                out |= c.mask(store)
+            return out
+        if self.op == "not":
+            return ~self.children[0].mask(store)
+        col = store.column(self.column)
+        if self.op == "eq":
+            return col == np.asarray(self.value)
+        if self.op == "in":
+            return np.isin(col, _canon(list(self.value)))
+        if self.op == "range":
+            lo, hi = self.value
+            out = np.ones(store.n_rows, bool)
+            if lo is not None:
+                out &= col >= lo
+            if hi is not None:
+                out &= col <= hi
+            return out
+        raise ValueError(f"unknown filter op {self.op!r}")

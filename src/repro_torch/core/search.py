@@ -49,8 +49,12 @@ search, never once a phase.
 Tombstones (deleted ids, DESIGN.md §8) enter as pre-marked ``visited``
 bits (:func:`batch_make_state`): a tombstoned id is never seeded,
 expanded, fetched or returned, and every step, the kernel's included,
-reads ``visited`` as state. Filters (``banned``) come with a later slice
-of the port.
+reads ``visited`` as state. A metadata filter's deny mask (``banned``,
+DESIGN.md §9) is route-but-don't-return: it never enters the state, a
+hop step or B.8, and is read only at extraction
+(:func:`finalize_topk`), where denied ids become sentinels before the
+merge, so a filtered search takes the unfiltered search's steps and
+tier-3 accesses at the same ef.
 """
 
 from __future__ import annotations
@@ -505,17 +509,31 @@ def batch_load_phase(
 
 
 def finalize_topk(
-    state: SearchState, k: int
+    state: SearchState, k: int, banned: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k extraction of a (B, ef) beam: (dists, ids), each (B, k),
-    -1/+inf padded when fewer than k entries survive."""
+    """Top-k extraction of a (B, ef) or (ef,) beam through
+    ``ops.merge_topk``: (dists, ids), each (B, k) or (k,), -1/+inf padded
+    when fewer than k entries survive.
+
+    ``banned`` ((n,) or (B, n) bool, the filter's deny mask) is where
+    route-but-don't-return acts, and the only place: the beam held
+    denied ids so they could route the traversal; here they become (+inf,
+    -1) sentinels and the top-k of the allowed beam is taken, as the
+    reference's ``finalize_topk`` does."""
     ids, dists = state.beam.ids, state.beam.dists
+    one = ids.dim() == 1
+    if one:
+        ids, dists = ids[None], dists[None]
     bad = ids < 0
+    if banned is not None:
+        n = banned.shape[-1]
+        rows = banned.reshape(-1, n).expand(ids.shape[0], n)
+        bad = bad | rows.gather(1, ids.long().clamp(0, n - 1))
     d, i, _ = ops.merge_topk(
         torch.where(bad, INF, dists).contiguous(),
         torch.where(bad, -1, ids).contiguous(), k,
     )
-    return d, i
+    return (d[0], i[0]) if one else (d, i)
 
 
 # ------------------------------------------------------ single-query forms
@@ -727,6 +745,7 @@ def lazy_knn_search_fused(
     metric: str = "l2",
     eviction: int = 0,
     tombstones: Optional[torch.Tensor] = None,  # (N,) bool: deleted ids
+    banned: Optional[torch.Tensor] = None,  # (N,) bool: filter deny mask
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
            CacheState]:
     """Whole lazy KNN query, all layers, on the device-resident payload:
@@ -737,7 +756,9 @@ def lazy_knn_search_fused(
     pq payload ((N, M) uint8 codes of tier 2's codebook) is read through
     the query's lookup tables, built once here for the whole search.
     ``tombstones`` masks deleted ids out of every layer (pre-visited);
-    the caller passes a live ``entry``."""
+    the caller passes a live ``entry``. ``banned`` leaves the search as
+    it is and drops denied ids at the last layer's extraction
+    (:func:`finalize_topk`)."""
     luts = None
     if payload.dtype == torch.uint8:
         luts = pq.build_lut(q, cache.codebook, metric)[None]
@@ -756,8 +777,11 @@ def lazy_knn_search_fused(
         max(ef, k), metric, eviction=eviction, luts=luts,
         tombstones=tombstones,
     )
-    return (st.beam.dists[:k], st.beam.ids[:k], (n_db + db, n_fetch + fc),
-            cache)
+    if banned is not None:
+        dists, ids = finalize_topk(st, k, banned)
+    else:
+        dists, ids = st.beam.dists[:k], st.beam.ids[:k]
+    return dists, ids, (n_db + db, n_fetch + fc), cache
 
 
 # ------------------------------------------------------- in-memory oracle

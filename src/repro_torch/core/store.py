@@ -34,8 +34,12 @@ behaviour-preserving:
   :meth:`TieredStore.gather_batch` returns the deduplicated union rows
   and per-query positions into them instead of a (B, k, d) copy.
 
-Invalidation for the mutation lifecycle comes in a later slice of the
-port (ROADMAP queue A, "Mutation and filters").
+The mutation lifecycle (DESIGN.md §8) adds :func:`cache_evict` (a
+delete unmaps its ids, in place, so the tier-2 tensors and the step
+graphs captured over them stay valid), :func:`cache_grow` (an ``add``
+lengthens the id→slot map: a new tensor, so captures over the old one
+are dropped) and :meth:`ExternalStore.append` (rows appended behind a
+``DeltaBackend``).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ import torch
 
 from repro_torch.core import pq, quant
 from repro_torch.core.storage import (
+    DeltaBackend,
     InMemoryBackend,
     LatencyModel,
     StorageBackend,
@@ -300,6 +305,51 @@ def cache_insert(
     return cache
 
 
+def cache_evict(cache: CacheState, ids: torch.Tensor) -> CacheState:
+    """Drop ``ids`` ((k,) int32, -1 padded) from tier 2 for a delete or an
+    upsert, in place, and return ``cache``.
+
+    Both directions of the id↔slot map are cleared, so no lookup serves a
+    tombstoned row again; a freed slot gets LRU stamp 0 (the stalest, so
+    it is reclaimed first). The slab row stays as garbage, unreachable
+    once unmapped, as after a ring wrap. A slot is freed only where its
+    mapping is current (the ``id_of`` cross-check of
+    :func:`cache_slots`); ids out of range and -1 are no-ops. The
+    reference's drop-mode scatters become masked writes
+    (:func:`_write_plan`)."""
+    ids = ids.reshape(-1).to(torch.int32)
+    if ids.numel() == 0:
+        return cache
+    n, cap = cache.slot_of.shape[0], cache.capacity
+    in_range = (ids >= 0) & (ids < n)
+    safe_ids = ids.long().clamp(0, n - 1)
+    slots = cache.slot_of[safe_ids]
+    safe_slots = slots.long().clamp(0, cap - 1)
+    current = in_range & (slots >= 0) & (cache.id_of[safe_slots] == ids)
+    plan = _write_plan(safe_slots, current)
+    _put(cache.id_of, plan, torch.full_like(ids, -1))
+    _put(cache.last_used, plan, torch.zeros_like(ids))
+    _put(cache.slot_of, _write_plan(safe_ids, in_range),
+         torch.full_like(ids, -1))
+    return cache
+
+
+def cache_grow(cache: CacheState, n_items: int) -> CacheState:
+    """``cache`` with its id→slot map extended to ``n_items`` ids, the new
+    ones absent; slab and capacity unchanged (adding corpus rows does not
+    resize tier 2). The map is a new tensor, so a step graph captured
+    over the old one is never replayed (``core/step_graph.py``)."""
+    extra = int(n_items) - cache.slot_of.shape[0]
+    if extra < 0:
+        raise ValueError("cache id space cannot shrink")
+    if extra == 0:
+        return cache
+    pad = torch.full((extra,), -1, dtype=torch.int32,
+                     device=cache.slot_of.device)
+    return dataclasses.replace(
+        cache, slot_of=torch.cat([cache.slot_of, pad]))
+
+
 def cache_insert_batch(
     cache: CacheState,
     ids: torch.Tensor,  # (B, k) int32, -1 padded
@@ -416,6 +466,28 @@ class ExternalStore:
             out[j] = self.fetch(np.array([i]))
         return out
 
+    def append(self, rows: np.ndarray) -> np.ndarray:
+        """Append payload rows for the mutation lifecycle (DESIGN.md §8)
+        and return their ids. On first use the storage medium is wrapped
+        in a :class:`DeltaBackend` inside any LatencyModel chain, so the
+        cost model keeps covering every fetch while the medium stays
+        frozen. An append is not a query-time access: no counter moves."""
+        base = self.base_backend
+        if not isinstance(base, DeltaBackend):
+            delta = DeltaBackend(base)
+            b = self.backend
+            if isinstance(b, LatencyModel):
+                while isinstance(b.inner, LatencyModel):
+                    b = b.inner
+                b.inner = delta
+            else:
+                self.backend = delta
+            base = delta
+        return base.append(rows)
+
+    def mark_used(self, n: int) -> None:
+        self.stats.items_used += int(n)
+
     def mark_used_ids(self, ids) -> None:
         """Eq. 1 hit accounting, per fetch event: each fetched copy of an
         item counts as 'used' when first demanded after that fetch."""
@@ -477,6 +549,16 @@ class TieredStore:
 
     def lookup(self, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return cache_lookup(self.cache, ids)
+
+    def invalidate(self, ids: np.ndarray) -> None:
+        """Evict ``ids`` from tier 2 (delete/upsert invalidation), in
+        place."""
+        self.cache = cache_evict(
+            self.cache, self._upload(np.asarray(ids, dtype=np.int32)))
+
+    def grow(self, n_items: int) -> None:
+        """Extend the cache's id space after corpus rows were appended."""
+        self.cache = cache_grow(self.cache, n_items)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)

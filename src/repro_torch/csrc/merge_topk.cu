@@ -28,11 +28,13 @@
 // winner's position, so they are input bits (-0.0 stays -0.0, though it
 // ties +0.0).
 //
-// Rows of M > 256 (no path sends them; the tests do, up to MAX_CANDIDATES
-// in kernels/topk.py) keep the first design: one block per row, the row
-// staged in shared memory (M*8 bytes), k rounds of a block-wide argmin on
-// (dist, position), each followed by retiring the winner and every entry
-// with its id; a row that runs out of survivors stops early.
+// Rows of M > 256 (a filter's widened beam sends them: the per-op hop
+// step at ef 256 and the load phases at ef 208 and 256, M up to 545; the
+// tests go up to MAX_CANDIDATES in kernels/topk.py) keep the first
+// design: one block per row, the row staged in shared memory (M*8 bytes),
+// k rounds of a block-wide argmin on (dist, position), each followed by
+// retiring the winner and every entry with its id; a row that runs out of
+// survivors stops early.
 
 #include <climits>
 #include <cuda_runtime.h>

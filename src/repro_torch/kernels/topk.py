@@ -6,11 +6,12 @@
 ``merge_topk_pallas`` and serves as the beam merge of the lazy search:
 its ``src`` output carries the beam's ``explored`` flags through the
 merge. Rows of at most 256 candidates (kSortMax in the source; every
-row the query path sends) go one warp a row through a bitonic sort of
-(dist, position) keys in registers; the dedup sorts (id, rank) keys of
+row an unfiltered search sends) go one warp a row through a bitonic sort
+of (dist, position) keys in registers; the dedup sorts (id, rank) keys of
 the first k ranks only, and of every valid rank only where those hold a
-repeated id. Wider rows keep the first design, one block a row and k
-rounds of a block-wide argmin. Bound: bytes, but at the query path's
+repeated id. Wider rows, which a filter's widened beam sends (a hop step
+at ef 256, load phases at ef 208 and 256), keep the first design, one
+block a row and k rounds of a block-wide argmin. Bound: bytes, but at the query path's
 shapes (M ≤ 161, k = 64) what it pays is the sorts' dependent steps;
 see the source. It launches with no host sync and allocates nothing
 beyond its three outputs, so a CUDA graph can capture it.

@@ -302,6 +302,7 @@ def _merge_rows(kind, B, M, k):
       and NaN / +inf distances;
     - ``path``: as the beam merge sends them, an ef = 64 beam of ascending
       distances then new entries, ids distinct, all valid;
+    - ``beam``: the same with a k-wide beam (a filter's boosted ef);
     - ``dups_after`` / ``dups_before``: every id twice, its best copy in
       the first half of the row (equal distances included) or only in the
       second, so the dedup must look forward or back.
@@ -316,8 +317,8 @@ def _merge_rows(kind, B, M, k):
         return d, i
     ids = np.stack([rng.choice(10**6, M, replace=False)
                     for _ in range(B)]).astype(np.int32)
-    if kind == "path":
-        ef = min(64, M)
+    if kind in ("path", "beam"):
+        ef = min(64 if kind == "path" else k, M)
         d = np.concatenate([np.sort(rng.random((B, ef)), 1),
                             rng.random((B, M - ef))], 1)
         return d.astype(np.float32), ids
@@ -344,12 +345,56 @@ def _merge_rows(kind, B, M, k):
     ("ties", 3, 256, 256), ("ties", 3, 200, 300),  # k = M, k > M
     ("dups_after", 8, 160, 64), ("dups_before", 8, 160, 64),
     ("dups_after", 2, 600, 64), ("dups_before", 2, 600, 64),
+    # a filter's wider beams (ef 208 and 256, degree 32): the per-op hop
+    # step's row at ef 256 and the load phases' 2·ef + 33, batched and
+    # single
+    ("beam", 32, 288, 256), ("beam", 32, 545, 256), ("beam", 1, 288, 256),
+    ("beam", 1, 545, 256), ("beam", 32, 449, 208), ("ties", 32, 545, 256),
 ])
 def test_merge_topk_kernel_random(cuda, kind, B, M, k):
     d, i = _merge_rows(kind, B, M, k)
     dt, it = torch.from_numpy(d).to(cuda), torch.from_numpy(i).to(cuda)
     for g, w in zip(ops.merge_topk(dt, it, k), ref.merge_topk_ref(dt, it, k)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,ef,k", [(32, 256, 10), (1, 256, 10), (8, 96, 20),
+                                    (4, 64, 64)])
+@pytest.mark.parametrize("shared", [True, False])
+def test_finalize_topk_with_deny_mask_on_card(cuda, B, ef, k, shared):
+    """``search.finalize_topk`` under a filter's deny mask ((N,) shared
+    or (B, N) a query) on the card, through B.2, equals the same on the
+    CPU through the plain merge: denied and padded entries never win,
+    the allowed ones keep their beam order."""
+    rng = np.random.default_rng(B + ef + k)
+    n = 5_000
+    d = np.sort(rng.random((B, ef)), 1).astype(np.float32)
+    i = np.stack([rng.choice(n, ef, replace=False)
+                  for _ in range(B)]).astype(np.int32)
+    i[:, ef - ef // 8:] = -1  # the beam's padded tail
+    d[i < 0] = np.inf
+    denied = rng.random(n if shared else (B, n)) < 0.5
+    out = {}
+    for dev in ("cuda", "cpu"):
+        beam = S.Beam(torch.from_numpy(i).to(dev), torch.from_numpy(d).to(dev),
+                      torch.zeros((B, ef), dtype=torch.bool, device=dev))
+        st = S.SearchState(beam, *[torch.zeros(1, device=dev)] * 5)
+        out[dev] = S.finalize_topk(st, k, torch.from_numpy(denied).to(dev))
+        one = S.finalize_topk(S._first(S._map_state(st, lambda t: t[:1])),
+                              k, torch.from_numpy(denied if shared
+                                                  else denied[0]).to(dev))
+        for a, b in zip(one, out[dev]):
+            assert torch.equal(a.cpu(), b[0].cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a.cpu(), b)
+    ids = out["cpu"][1].numpy()
+    rows = np.broadcast_to(denied, (B, n)) if shared else denied
+    for b in range(B):
+        kept = ids[b][ids[b] >= 0]
+        assert not rows[b][kept].any()
+        allowed = [x for x in i[b] if x >= 0 and not rows[b][x]]
+        assert kept.tolist() == allowed[:k]
 
 
 @pytest.mark.cuda
@@ -1231,6 +1276,96 @@ def test_hop_step_kernel_honours_preset_visited_bits(hop_data, precision, B,
             state.visited[:, :n]))  # every tombstone still marked
         steps += int(want[1].any())
     assert steps > 0  # the steps did work
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("ef", list(cs.HOP_MUTATED_EFS))
+@pytest.mark.parametrize("precision", ["float32", "int8", "float16"])
+@pytest.mark.parametrize("kind", list(cs.MUTATED_TIER2))
+def test_hop_step_kernel_over_mutated_tier2(hop_data, kind, precision, ef,
+                                            metric, B):
+    """B.8 over the tier 2s mutations leave (``chip_smoke.mutated_tier2``:
+    a delete's holes in ``slot_of`` and ``id_of``, an add's grown id
+    space, tombstones pre-set in ``visited``) at ef 64 and a filter's 208:
+    one launch, every output tensor equal to the per-op step's."""
+    X, Qn, nbrs_np, _ = hop_data[HOP_D]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(ef + B)
+    tier2, tomb = cs.mutated_tier2(HOP_PORT, X, precision, kind, rng,
+                                   HOP_N // 3, dev)
+    state = cs.tombstone_state(S, cs.hop_state(
+        S, rng, X, Qn[:B], nbrs_np[32], ef, ef + 33, ef, 100_000, metric,
+        dev), tomb)
+    Q = torch.from_numpy(Qn[:B]).to(dev)
+    nbrs = torch.from_numpy(nbrs_np[32]).to(dev)
+    before = ops.launch_counts()["hop_step"]
+    got = S.batch_hop_step(Q, nbrs, state, tier2, metric, ef)
+    assert ops.launch_counts()["hop_step"] - before == 1
+    want = S.batch_hop_step_plain(Q, nbrs, state, tier2, metric, ef)
+    for g, w in zip(cs.hop_step_args(S, *got), cs.hop_step_args(S, *want)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if kind == "tombstoned":  # no tombstoned id entered a beam or L
+        held = [t.cpu().numpy().ravel() for t in (
+            state.beam.ids, state.miss_ids, got[0].beam.ids,
+            got[0].miss_ids)]
+        fresh = np.setdiff1d(np.concatenate(held[2:]),
+                             np.concatenate(held[:2]))
+        assert not tomb[fresh[fresh >= 0]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("driver", ["loop", "batched", "fused"])
+def test_mutated_engine_on_card_matches_cpu(cuda, driver, filtered):
+    """One engine on the card and one on the CPU put through the same
+    delete (the entry point among the ids), add and upsert, then served
+    the same request, unfiltered or under a filter of selectivity 0.1
+    (ef 32 boosted to 104): equal ids and access counts, distances to
+    float32 rounding, no deleted or denied id, and, on the card, step
+    graphs captured anew after the add."""
+    from repro_torch.core.metadata import Filter
+
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((600, 64)).astype(np.float32)
+    X2 = rng.standard_normal((60, 64)).astype(np.float32)
+    Q = np.concatenate([X[rng.choice(600, 4)], X2[:4]]) + 0.1 * \
+        rng.standard_normal((8, 64)).astype(np.float32)
+    meta = {"cat": np.arange(600) % 10}
+    g = build_hnsw(X, M=8, ef_construction=40, seed=0)
+    filt = Filter.eq("cat", 3) if filtered else None
+    gone = np.concatenate([rng.choice(600, 30, replace=False),
+                           [g.entry_point], [7, 8]])
+    res, captures = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = E.WebANNSEngine.build(X, M=8, ef_construction=40, seed=0,
+                                    metadata=meta, config=E.EngineConfig(
+                                        cache_capacity=150, device=dev,
+                                        fused=driver == "fused"))
+        req = E.SearchRequest(query=Q, k=10, ef=32, filter=filt,
+                              batch_mode="loop" if driver == "loop"
+                              else "batched")
+        eng.search(req)
+        before = step_graph.stats["captures"]
+        eng.delete(gone[:-2])
+        eng.add(X2, metadata={"cat": np.arange(60) % 10})
+        eng.upsert([7, 8], X[7:9] + 0.1)
+        res[dev] = eng.search(req)
+        captures[dev] = step_graph.stats["captures"] - before
+    on, off = res["cuda"], res["cpu"]
+    np.testing.assert_array_equal(on.ids, off.ids)
+    np.testing.assert_allclose(on.dists, off.dists, rtol=1e-5)
+    assert [s.n_db for s in on.stats] == [s.n_db for s in off.stats]
+    assert [s.items_fetched for s in on.stats] == \
+        [s.items_fetched for s in off.stats]
+    assert not np.isin(on.ids, gone).any()
+    if filtered:  # 66 rows allowed: a row may come back padded
+        cat = np.concatenate([meta["cat"], np.arange(60) % 10, [7, 8]])
+        assert (cat[on.ids[on.ids >= 0]] == 3).all()
+    else:
+        assert (on.ids >= 0).all()
+    assert captures["cuda"] > 0 and captures["cpu"] == 0
 
 
 @pytest.mark.cuda

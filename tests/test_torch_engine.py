@@ -167,23 +167,16 @@ def test_in_memory_oracle_matches_lazy(small_dataset, small_graph):
         np.testing.assert_array_equal(res.dists, d.numpy())
 
 
-def test_unported_features_raise(small_dataset, small_graph):
+def test_unported_features_raise():
     # pq is ported (tests/test_torch_pq.py); with shards it is refused
-    # as the reference refuses it. Persistence is ported
-    # (tests/test_torch_persistence.py); mutation and filters are not
+    # as the reference refuses it. Persistence, mutation and filters are
+    # ported (tests/test_torch_persistence*.py, test_torch_mutation.py,
+    # test_torch_filtered_search.py); the sharded driver is not
     assert P.EngineConfig(device="cpu", precision="pq8").precision == "pq"
     with pytest.raises(ValueError):
         P.EngineConfig(device="cpu", precision="pq", n_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.EngineConfig(device="cpu", n_shards=2)
-    X, Q = small_dataset
-    _, port = _engines(small_dataset, small_graph, "webanns", "fifo")
-    for call in (lambda: port.add(X[:2]), lambda: port.delete([0]),
-                 lambda: port.upsert([0], X[:1]),
-                 lambda: port.search(P.SearchRequest(query=Q[0],
-                                                     filter=object()))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
 
 
 # ----------------------------------------------- quantized tier 2 + rerank

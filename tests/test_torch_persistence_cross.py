@@ -16,6 +16,10 @@ made with numpy from a seed:
   ``upsert`` open in the port with the JAX engine's results and no
   tombstoned id in any driver; tombstones marked on disk (the entry
   point among them) move the entry point to the same live node in both;
+- a port engine opened on the same full save and put through the same
+  ``add``, ``delete`` and ``upsert`` writes the JAX engine's delta byte
+  for byte, and its artifact opens in the JAX package with the port's
+  results in every driver;
 - a grown graph's and index's delta saves write the reference's files;
 - metadata columns and their dtypes round-trip in both directions.
 """
@@ -237,6 +241,71 @@ def mutated(tmp_path_factory):
         assert info["mode"] == "delta" and info["epoch"] == 1
         out[precision] = (path, eng)
     return out
+
+
+@pytest.fixture(scope="module")
+def mutated_by_both(mutated, tmp_path_factory):
+    """For float32 and int8: one full save by the JAX package, copied
+    twice; a JAX engine and a port engine each opened on a copy, put
+    through ``mutated``'s add, delete (the same ids) and upsert, and
+    delta-saved into it: ``{precision: (jax_dir, torch_dir)}``."""
+    rng = np.random.default_rng(42)
+    X = rng.standard_normal((400, 24)).astype(np.float32)
+    X2 = rng.standard_normal((60, 24)).astype(np.float32)
+    out = {}
+    for precision in ("float32", "int8"):
+        root = tmp_path_factory.mktemp("both_" + precision)
+        eng = R.WebANNSEngine.build(
+            X, M=8, ef_construction=48, seed=7,
+            config=R.EngineConfig(cache_capacity=CAP, precision=precision))
+        eng.save(str(root / "jax"), shard_bytes=1 << 13)
+        shutil.copytree(root / "jax", root / "torch")
+        _, live = mutated[precision]
+        victims = np.flatnonzero(live.tombstones[:400])  # the same ids
+        dirs = (str(root / "jax"), str(root / "torch"))
+        for path, mod, cfg in zip(dirs, (R, P), _configs(precision)):
+            engine = mod.WebANNSEngine.open(path, config=cfg)
+            engine.add(X2)
+            engine.delete(victims[~np.isin(victims, [5, 11])])
+            engine.upsert([5, 11], X2[:2] * 0.5)
+            assert engine.save(path, shard_bytes=1 << 13)["mode"] == "delta"
+        out[precision] = dirs
+    return out
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8"])
+def test_port_mutation_writes_the_references_delta(mutated_by_both,
+                                                   precision):
+    """The port's add/delete/upsert and delta save on a reopened artifact
+    write the JAX engine's files (appended vector shards, dirtied graph
+    shards, levels, tombstones) byte for byte, and the same manifest."""
+    jax_dir, torch_dir = mutated_by_both[precision]
+    man_j, files_j = _artifact_files(jax_dir)
+    man_t, files_t = _artifact_files(torch_dir)
+    assert man_j == man_t and man_t["mutation_epoch"] == 1
+    assert files_j == files_t
+    for f in sorted(files_j):
+        assert filecmp.cmp(os.path.join(jax_dir, f),
+                           os.path.join(torch_dir, f), shallow=False), f
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+@pytest.mark.parametrize("precision", ["float32", "int8"])
+def test_port_mutated_artifact_opens_in_reference(mutated, mutated_by_both,
+                                                  precision, driver):
+    """The JAX package opens the port's delta artifact and serves the
+    port's results on it; no tombstoned id comes back."""
+    path = mutated_by_both[precision][1]
+    ref, port = _open_both(path, precision, driver)
+    assert ref.n == port.n == 462 and ref.n_live == port.n_live
+    np.testing.assert_array_equal(np.asarray(ref.tombstones),
+                                  port.tombstones)
+    Q = mutated["Q"]
+    want = ref.search(_request(R, Q, driver))
+    got = port.search(_request(P, Q, driver))
+    _assert_same(want, got)
+    dead = set(np.flatnonzero(port.tombstones).tolist())
+    assert dead and not dead & set(np.asarray(want.ids).ravel().tolist())
 
 
 @pytest.mark.parametrize("driver", DRIVERS)
