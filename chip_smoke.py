@@ -16,17 +16,21 @@ the script exits non-zero:
 3. kernels against their plain PyTorch versions, on the card, at the
    shapes of the query path (the dequant kernel at int8 and float16), and
    the flat scan's: the merge exactly at tie-heavy rows on both sides of
-   its variant switch (M = 255, 256, 257, and 1,000), at rows shaped
-   as the beam merge sends them, at the rows a filter's wider beam sends
-   ((32 and 1, 288 and 545) to k = 256, (32, 449) to 208:
-   ``filter_merge_shapes``) and at a filtered finalize's (a (B, 256)
-   beam, half denied, to k = 10); the distance matrix at l2/ip/cos within
-   DM_TOL of the metric's scale, the top-k exactly (k = 1, 10 and the
-   cap, ragged N, ties across tiles and across merge levels, all-inf
-   rows, rows with fewer than k finite, retrieval's (1, 1,000,000)); and
-   the embedding bag exactly (sum and mean, with and without weights,
-   float32/float16/bfloat16 tables, d in {1, 3, 64, 768}, S in {1, 32},
-   B in {1, 512}, ids at and above V, all-padding bags, int64 ids); and
+   its variant switch (M = 255, 256, 257), at rows shaped as the beam
+   merge sends them, at the rows a filter's wider beam sends ((32 and 1,
+   288 and 545) to k = 256, (32, 449) to 208: ``filter_merge_shapes``),
+   at a filtered finalize's (a (B, 256) beam, half denied, to k = 10),
+   and at the wide variant's joins (``merge_checks``: runs of 256 ending
+   at M = 512, 513, 769, 1,000 and ``MAX_CANDIDATES``; every id twice,
+   its copies in other runs; whole runs of sentinels; -0.0 against
+   +0.0; k = 1, k = M, k > M and fewer survivors than k); the distance
+   matrix at l2/ip/cos within DM_TOL of the metric's scale, the top-k
+   exactly (k = 1, 10 and the cap, ragged N, ties across tiles and
+   across merge levels, all-inf rows, rows with fewer than k finite,
+   retrieval's (1, 1,000,000)); and the embedding bag exactly (sum and
+   mean, with and without weights, float32/float16/bfloat16 tables, d
+   in {1, 3, 64, 768}, S in {1, 32}, B in {1, 512}, ids at and above V,
+   all-padding bags, int64 ids); and
    the hop-step kernel B.8 on mid-search states over a 10,000 x 768
    table, at float32, int8 and float16, l2/ip/cos, B in {1, 32}, layer
    0's shape (ef 64, degree 32, a cached tier 2) and an upper layer's
@@ -61,7 +65,8 @@ the script exits non-zero:
      ``train_pq`` and adopted by every engine: single, ``batched``,
      ``loop`` and fused; checked for recall@10 against the JAX package's
      at this configuration (``REF_PQ_RECALL``), ids against the CPU
-     engine, a tier 2 of 480,000 bytes bit-equal to the CPU engine's,
+     engine (the fused driver's on its first ``PQ_CPU_FUSED_QUERIES``
+     queries), a tier 2 of 480,000 bytes bit-equal to the CPU engine's,
      one rerank access, a fused payload of uint8 codes only, and the ADC
      kernel's launches;
    then every path's layer search replayed from CUDA graphs held to its
@@ -226,6 +231,11 @@ PQ_ALPHA = 4.0
 # PQ_RECALL_TOL of them. The single-query driver is the loop's.
 REF_PQ_RECALL = {"batched": 0.90625, "loop": 0.96875, "fused": 0.84375}
 PQ_RECALL_TOL = 0.02
+# the CPU engine that pq's fused driver on the card is held to serves the
+# first 8 of the 32 queries: a fused engine serves them one at a time,
+# so each is the card's query after the same ones, and the CPU's fused pq
+# search takes about 4 s a query, two minutes for the whole batch
+PQ_CPU_FUSED_QUERIES = 8
 
 # the corpus, the HNSW build, the queries and the pq codebook
 CORPUS_SEED, GRAPH_SEED, QUERY_SEED, PQ_SEED = 13, 0, 5, 0
@@ -234,7 +244,8 @@ CORPUS_SEED, GRAPH_SEED, QUERY_SEED, PQ_SEED = 13, 0, 5, 0
 # snapped up to 8 (engine._boost_ef): 96 at s = 0.5, 208 at 0.1, 256 at
 # s <= 1/16. The hop step's merge row is ef + degree (128, 240, 288: B.8
 # takes the first two, the per-op step the last), a load phase's is
-# 2·ef + degree + 1 (225, 449, 545): B.2's one-block-a-row variant
+# 2·ef + degree + 1 (225, 449, 545): B.2's wide variant past 256 (runs
+# of 256 sorted a warp each, merged by rank)
 FILTER_EFS = (96, 208, 256)
 
 
@@ -436,6 +447,50 @@ def path_merge_inputs(rng, B: int, M: int, ef: int, dev):
     return torch.from_numpy(d).to(dev), torch.from_numpy(ids).to(dev)
 
 
+def twice_inputs(rng, B: int, M: int, dev):
+    """Every id twice (the last once at odd M), the copies M // 2 apart,
+    so in other runs of the wide variant; distances rounded to 0.01, so
+    a copy ties its twin or another id at times."""
+    h = M // 2
+    ids = np.stack([rng.choice(1_000_000, M - h, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    ids = np.concatenate([ids, ids[:, :h]], 1)
+    d = np.round(rng.random((B, M)), 2).astype(np.float32)
+    return torch.from_numpy(d).to(dev), torch.from_numpy(ids).to(dev)
+
+
+def sentinel_run_inputs(rng, B: int, M: int, dev):
+    """Distinct ids, positions [256, 512) all sentinels (id -1, NaN,
+    +inf and -inf in turn: a whole run of the wide variant), and
+    distances -0.0 and +0.0 among the rest, which tie."""
+    d, ids = path_merge_inputs(rng, B, M, 0, dev)
+    d, ids = d.cpu().numpy(), ids.cpu().numpy()
+    pos = np.arange(M)
+    dead = (pos >= 256) & (pos < 512)
+    ids[:, dead & (pos % 4 == 0)] = -1
+    d[:, dead & (pos % 4 == 1)] = np.nan
+    d[:, dead & (pos % 4 == 2)] = np.inf
+    d[:, dead & (pos % 4 == 3)] = -np.inf
+    zero = rng.random((B, M)) < 0.2
+    d[zero] = rng.choice(np.array([-0.0, 0.0], np.float32), int(zero.sum()))
+    return torch.from_numpy(d).to(dev), torch.from_numpy(ids).to(dev)
+
+
+def crowded_inputs(rng, B: int, M: int, dev):
+    """Distinct ids but for the 40 best entries, which share two, so the
+    first survivors lie far apart in rank."""
+    d, ids = path_merge_inputs(rng, B, M, 0, dev)
+    d, ids = d.cpu().numpy(), ids.cpu().numpy()
+    best = np.argsort(d, 1, kind="stable")[:, :40]
+    np.put_along_axis(ids, best, rng.integers(0, 2, (B, 40)), 1)
+    return torch.from_numpy(d).to(dev), torch.from_numpy(ids).to(dev)
+
+
+MERGE_INPUTS = {"ties": merge_inputs, "twice": twice_inputs,
+                "sentinel_runs": sentinel_run_inputs,
+                "crowded": crowded_inputs}
+
+
 def finalize_inputs(rng, B: int, ef: int, dev):
     """A layer-0 beam as ``search.finalize_topk`` hands it to the merge
     under a filter: ef ascending distances, distinct ids, about half of
@@ -457,15 +512,29 @@ def filter_merge_shapes(shape: Shape) -> list:
     return out + [(shape.batch, 2 * 208 + shape.degree + 1, 208)]
 
 
-def merge_checks(shape: Shape) -> list:
+def merge_checks(shape: Shape, max_m: int) -> list:
     """(kind, B, M, k) rows phase 3 holds the merge to its plain version
     on: the beam merge's rows a hop and a load phase (tie-heavy and
     path-like, the beam k wide), at B = 1 for the loop and single
     drivers, the finalize's k = 1, and the widths on both sides of the
-    warp-sort variant's limit of 256 and well past it (the block-argmin
-    variant); a filter's wider beams (``filter_merge_shapes``) and a
-    filtered finalize (a (B, 256) beam, half denied, to k)."""
+    warp-sort variant's limit of 256; a filter's wider beams
+    (``filter_merge_shapes``) and a filtered finalize (a (B, 256) beam,
+    half denied, to k); and the wide variant's joins (runs of 256, merged
+    by rank): rows ending one past a run, on a run's end and at the
+    widest row ``max_m`` (``MAX_CANDIDATES``), every id twice at a
+    filter's (B, 545) to 256 and past it, whole runs of sentinels with
+    -0.0 and +0.0 ties, k = 1, k = M, k > M and fewer survivors than
+    k, and rows whose 40 best entries share two ids."""
     hop, load = shape.ef + shape.degree, shape.ef + shape.miss_cap
+    B, wide = shape.batch, 2 * 256 + shape.degree + 1
+    joins = [("ties", 4, 512, shape.ef), ("ties", 4, 513, shape.ef),
+             ("ties", 4, 769, 256), ("ties", 3, 1_000, 50),
+             ("path", 4, 1_000, 256), ("ties", 2, max_m, 16),
+             ("twice", 2, max_m, 256), ("twice", B, wide, 256),
+             ("twice", 4, 769, 300), ("sentinel_runs", B, wide, 256),
+             ("sentinel_runs", 4, 769, 600), ("ties", 8, wide, 1),
+             ("ties", 3, wide, wide), ("ties", 3, 600, 700),
+             ("crowded", 4, 769, 16), ("crowded", 2, max_m, 5)]
     return ([("ties", shape.batch, hop, shape.ef),
              ("ties", shape.batch, load, shape.ef),
              ("ties", shape.batch, shape.degree + 1, 1),
@@ -473,11 +542,12 @@ def merge_checks(shape: Shape) -> list:
              ("path", shape.batch, load, shape.ef),
              ("path", 1, hop, shape.ef),
              ("ties", 4, 255, shape.ef), ("ties", 4, 256, shape.ef),
-             ("ties", 4, 257, shape.ef), ("ties", 3, 1_000, 50)]
+             ("ties", 4, 257, shape.ef)]
             + [("path", B, M, k) for B, M, k in filter_merge_shapes(shape)]
             + [("ties", shape.batch, M, k)
                for B, M, k in filter_merge_shapes(shape) if B > 1]
-            + [("finalize", B, 256, shape.k) for B in (shape.batch, 1)])
+            + [("finalize", B, 256, shape.k) for B in (shape.batch, 1)]
+            + joins)
 
 
 def check_kernels(port, shape: Shape, dev, rng) -> dict:
@@ -511,9 +581,9 @@ def check_kernels(port, shape: Shape, dev, rng) -> dict:
                 float((one[fin[0]] - one_ref[fin[0]]).abs().max()))
     err.update(check_dequant_kernels(port, shape, dev, rng))
     err.update(check_adc_kernels(port, shape, dev, rng))
-    for kind, B, M, k in merge_checks(shape):
-        if kind == "ties":
-            d, i = merge_inputs(rng, B, M, dev)
+    for kind, B, M, k in merge_checks(shape, port["topk"].MAX_CANDIDATES):
+        if kind in MERGE_INPUTS:
+            d, i = MERGE_INPUTS[kind](rng, B, M, dev)
         elif kind == "path":
             d, i = path_merge_inputs(rng, B, M, k, dev)
         else:
@@ -1356,7 +1426,8 @@ def check_fused_path(port, shape: Shape, X, Q, run, cpu, precision: str,
 
 def check_pq_path(port, shape: Shape, X, Q, run, cpu) -> dict:
     """The pq paths on the card (``run`` holds single, batched, loop and
-    fused) against the JAX package's recall and the CPU engine."""
+    fused) against the JAX package's recall and the CPU engine (whose
+    fused run served the first ``PQ_CPU_FUSED_QUERIES`` queries)."""
     what = "pq path"
     out = {}
     for name in ("batched", "loop", "fused"):
@@ -1378,7 +1449,8 @@ def check_pq_path(port, shape: Shape, X, Q, run, cpu) -> dict:
           f"{what}: single query = first query of the loop")
     out["loop_vs_batched"] = _agreement(loop.ids, batched.ids)
     for name in REQUESTS + ("fused",):
-        a = _agreement(run[name].ids, cpu[name].ids)
+        want = cpu[name].ids  # the fused run's first queries
+        a = _agreement(run[name].ids[:len(want)], want)
         out[f"cpu_agreement_{name}"] = a
         check(a >= MIN_AGREEMENT,
               f"{what}: {name} ids agree with the CPU engine: {a}")
@@ -2943,18 +3015,22 @@ def time_merge(port, shape: Shape, dev, rng, launches, err) -> dict:
     and at the beam merge's own rows (``path_merge_inputs``) a hop, a load
     phase and at B = 1, each beside ``torch.topk`` on the same distances
     (a yardstick only: it has no id dedup and no sentinel rule); and the
-    block-argmin variant at (32, 1,000); and at the rows a filter's wider
-    beam sends (``filter_merge_shapes``, M > 256: the block-argmin
-    variant on the query path) and a filtered finalize's (a (B, 256)
-    beam, half denied, to k = 10), each beside ``torch.topk``. Inputs are
-    L2-resident, as on the query path, where the merge reads the row the
-    hop has just written."""
+    wide variant (runs of 256 merged by rank) at tie-heavy (32, 1,000)
+    to k = ef and at the widest row it takes, (2, ``MAX_CANDIDATES``) to
+    16; and at the rows a filter's wider beam sends
+    (``filter_merge_shapes``, M > 256: the wide variant on the query
+    path) and a filtered finalize's (a (B, 256) beam, half denied, to
+    k = 10), each beside ``torch.topk``. Inputs are L2-resident, as on
+    the query path, where the merge reads the row the hop has just
+    written."""
     ops, ref = port["ops"], port["ref"]
     B, k = shape.batch, shape.ef
 
     def bound(B, M, k=k):  # bytes: (dist, id) read once, (dist, id, src)
-        # written; operations: k rounds of M compares (below the bytes)
-        return bound_ms(B * M * 8 + B * k * 12, B * k * M)
+        # written; operations: what a selection with a dedup needs, a
+        # compare of each entry's key and a test of its id (below the
+        # bytes at every row)
+        return bound_ms(B * M * 8 + B * k * 12, 2 * B * M)
 
     def timed(d, i, k=k):
         return dict(
@@ -2971,6 +3047,7 @@ def time_merge(port, shape: Shape, dev, rng, launches, err) -> dict:
         path[f"{b_}x{m_}"] = timed(*path_merge_inputs(rng, b_, m_, shape.ef,
                                                       dev))
     wide = merge_inputs(rng, B, 1_000, dev)
+    widest = merge_inputs(rng, 2, port["topk"].MAX_CANDIDATES, dev)
     filt = {f"{b_}x{m_}_k{k_}": timed(*path_merge_inputs(rng, b_, m_, k_,
                                                           dev), k_)
             for b_, m_, k_ in filter_merge_shapes(shape)}
@@ -2990,7 +3067,9 @@ def time_merge(port, shape: Shape, dev, rng, launches, err) -> dict:
             [lambda: torch.topk(d, k, dim=1, largest=False)] * 100),
         call_ms=call_ms(lambda: ops.merge_topk(d, i, k)),
         plain_call_ms=call_ms(lambda: ref.merge_topk_ref(d, i, k)),
-        path=path, wide_shape=[B, 1_000], wide=timed(*wide), filter=filt,
+        path=path, wide_shape=[B, 1_000], wide=timed(*wide),
+        widest_shape=[2, port["topk"].MAX_CANDIDATES, 16],
+        widest=timed(*widest, 16), filter=filt,
     )
 
 
@@ -3905,10 +3984,13 @@ def main() -> int:
           f"{record['pq_train_s']:.2f} s", flush=True)
     pq_runs = {}
     for device in ("cuda", "cpu"):
+        stamp(record, f"pq_{device}")
         r = run_query_path(port, shape, device, X, graph, Q,
                            codebook=codebook)
-        f = run_query_path(port, shape, device, X, graph, Q, ("fused",),
-                           fused=True, codebook=codebook)
+        f = run_query_path(
+            port, shape, device, X, graph,
+            Q if device == "cuda" else Q[:PQ_CPU_FUSED_QUERIES], ("fused",),
+            fused=True, codebook=codebook)
         r["fused"], r["fused_s"] = f["fused"], f["fused_s"]
         r["engines"]["fused"] = f["engines"]["fused"]
         r["launches"]["fused"] = f["launches"]["fused"]
@@ -3918,13 +4000,15 @@ def main() -> int:
     record["query_path_pq"] = check_pq_path(port, shape, X, Q,
                                             pq_runs["cuda"], pq_runs["cpu"])
     record["launches"]["pq"] = pq_runs["cuda"]["launches"]
-    record["query_path_s"]["pq"] = {r: pq_runs["cuda"][r + "_s"]
-                                    for r in REQUESTS + ("fused",)}
+    for name, device in (("pq", "cuda"), ("pq_cpu", "cpu")):
+        record["query_path_s"][name] = {r: pq_runs[device][r + "_s"]
+                                        for r in REQUESTS + ("fused",)}
     for kname, n in pq_runs["cuda"]["launches_total"].items():
         launches[kname] += n
     runs["pq"] = pq_runs["cuda"]
     print(f"query path, pq: {json.dumps(record['query_path_pq'])}",
           flush=True)
+    stamp(record, "rerank_access")
     record["rerank_access"] = check_rerank_access(port, shape, X, graph, Q,
                                                   codebook)
     record["peak_device_bytes_query_paths"] = torch.cuda.max_memory_allocated()

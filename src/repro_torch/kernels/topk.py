@@ -10,11 +10,15 @@ row an unfiltered search sends) go one warp a row through a bitonic sort
 of (dist, position) keys in registers; the dedup sorts (id, rank) keys of
 the first k ranks only, and of every valid rank only where those hold a
 repeated id. Wider rows, which a filter's widened beam sends (a hop step
-at ef 256, load phases at ef 208 and 256), keep the first design, one
-block a row and k rounds of a block-wide argmin. Bound: bytes, but at the query path's
-shapes (M ≤ 161, k = 64) what it pays is the sorts' dependent steps;
-see the source. It launches with no host sync and allocates nothing
-beyond its three outputs, so a CUDA graph can capture it.
+at ef 256, load phases at ef 208 and 256), go one block a row: each warp
+sorts a run of 256 keys the same way, every key finds its rank in the
+row by a binary search of each run in shared memory, and the dedup keeps
+each id's least rank in a hash table there (``atomicMin``, so the same
+whatever the order); no step is taken once per output entry. Bound:
+bytes, but at the query path's shapes (M ≤ 545, k ≤ 256) what it pays
+is the sorts' dependent steps; see the source. It launches with no host
+sync and allocates nothing beyond its three outputs, so a CUDA graph can
+capture it.
 
 ``topk_cuda`` replaces ``src/repro/kernels/topk.py`` :: ``topk_pallas``
 and serves the flat scan's local top-k, the substrate's global reduce
@@ -41,11 +45,13 @@ import torch
 
 from repro_torch.kernels import _build
 
-# widest row the merge takes: its block-argmin variant stages the row in
-# 48 KB of shared memory less 256 bytes for its static arrays, 8 bytes a
-# candidate (csrc/merge_topk.cu); the query path's rows are at most
-# ef + miss_cap = 161 wide
-MAX_CANDIDATES = (48 * 1024 - 256) // 8
+# widest row the merge takes. A row wider than 256 needs runs_smem(M) =
+# 2,048·ceil(M / 256) + 24·M bytes of shared memory (csrc/merge_topk.cu):
+# 195,840 at this width. Each wide launch raises the kernel's
+# shared-memory limit to its row's need, which the H100 grants up to
+# 232,448 bytes a block (M up to about 7,200). The query path's rows are
+# at most 2·256 + 32 + 1 = 545 wide (a filter's load phase at ef 256)
+MAX_CANDIDATES = 6_112
 
 # the largest k the top-k kernel takes (kMaxK in csrc/topk.cu): twice the
 # reference's 64, where its first pass still shrinks a row eightfold

@@ -296,7 +296,7 @@ def test_merge_topk_kernel_matches_plain(cuda, case):
 
 
 def _merge_rows(kind, B, M, k):
-    """(dists, ids) rows of one kind:
+    """(dists, ids) numpy rows for the merge, by kind:
 
     - ``ties``: rounded distances, ids from [0, M/2) (duplicates), ids -1
       and NaN / +inf distances;
@@ -305,7 +305,16 @@ def _merge_rows(kind, B, M, k):
     - ``beam``: the same with a k-wide beam (a filter's boosted ef);
     - ``dups_after`` / ``dups_before``: every id twice, its best copy in
       the first half of the row (equal distances included) or only in the
-      second, so the dedup must look forward or back.
+      second, so the dedup must look forward or back (at odd M the last
+      entry's id is once);
+    - ``sentinel_runs``: distinct ids, positions [256, 512) all sentinels
+      (id -1, NaN, +inf and -inf in turn: a whole run of the wide
+      variant) and every third entry elsewhere one too;
+    - ``zeros``: distinct ids, distances -0.0, +0.0 and a few others, so
+      -0.0 ties +0.0 and the output keeps each input's bits;
+    - ``few_ids``: ids from [0, 12), so at most 12 survivors a row;
+    - ``crowded``: distinct ids but for the 40 best entries, which share
+      two ids, so the first survivors lie far apart in rank.
     """
     rng = np.random.default_rng(B + M + k)
     if kind == "ties":
@@ -322,7 +331,28 @@ def _merge_rows(kind, B, M, k):
         d = np.concatenate([np.sort(rng.random((B, ef)), 1),
                             rng.random((B, M - ef))], 1)
         return d.astype(np.float32), ids
-    h = M // 2  # M even: ids[:h] twice
+    if kind == "sentinel_runs":
+        d = rng.random((B, M)).astype(np.float32)
+        pos = np.arange(M)
+        dead = ((pos >= 256) & (pos < 512)) | (pos % 3 == 0)
+        kinds = pos % 4
+        ids[:, dead & (kinds == 0)] = -1
+        d[:, dead & (kinds == 1)] = np.nan
+        d[:, dead & (kinds == 2)] = np.inf
+        d[:, dead & (kinds == 3)] = -np.inf
+        return d, ids
+    if kind == "zeros":
+        d = rng.choice(np.array([-0.0, 0.0, 0.5, 1.0], np.float32), (B, M))
+        return d, ids
+    if kind == "few_ids":
+        return (np.round(rng.random((B, M)), 2).astype(np.float32),
+                rng.integers(0, 12, (B, M)).astype(np.int32))
+    if kind == "crowded":
+        d = np.round(rng.random((B, M)), 2).astype(np.float32)
+        best = np.argsort(d, 1, kind="stable")[:, :40]
+        np.put_along_axis(ids, best, rng.integers(0, 2, (B, 40)), 1)
+        return d, ids
+    h = M // 2  # ids[:h] twice
     best = np.round(rng.random((B, h)), 2)
     if kind == "dups_after":  # the second copy equal (a tie) or worse
         first, second = best, best + rng.choice([0.0, 0.5], (B, h))
@@ -330,6 +360,9 @@ def _merge_rows(kind, B, M, k):
         first, second = best + 0.5, best
     d = np.concatenate([first, second], 1).astype(np.float32)
     i = np.concatenate([ids[:, :h], ids[:, :h]], 1)
+    if M % 2:  # one id once, at the end
+        d = np.concatenate([d, rng.random((B, 1)).astype(np.float32)], 1)
+        i = np.concatenate([i, ids[:, h:h + 1]], 1)
     return d, i
 
 
@@ -350,6 +383,28 @@ def _merge_rows(kind, B, M, k):
     # single
     ("beam", 32, 288, 256), ("beam", 32, 545, 256), ("beam", 1, 288, 256),
     ("beam", 1, 545, 256), ("beam", 32, 449, 208), ("ties", 32, 545, 256),
+    # the wide variant's joins: runs of 256 sorted by a warp each, merged
+    # by rank; a row one entry past a run, on a run's end and past the
+    # block's 16 runs (MAX_CANDIDATES, above)
+    ("ties", 4, 512, 64), ("ties", 4, 513, 64), ("ties", 4, 769, 256),
+    ("beam", 4, 1000, 256), ("ties", 2, MAX_CANDIDATES, 256),
+    ("path", 2, MAX_CANDIDATES, 64),
+    # duplicates across runs and within the first k ranks: every id twice
+    ("dups_after", 32, 545, 256), ("dups_before", 32, 545, 256),
+    ("dups_after", 4, 769, 300), ("dups_before", 2, MAX_CANDIDATES, 256),
+    # whole runs of sentinels, fewer survivors than k, -0.0 against +0.0
+    ("sentinel_runs", 4, 769, 64), ("sentinel_runs", 4, 545, 400),
+    ("sentinel_runs", 2, 1000, 1000), ("zeros", 8, 545, 256),
+    ("zeros", 4, 1000, 600),
+    # k = 1, k = M, k > M past the warp variant
+    ("ties", 8, 545, 1), ("beam", 8, 545, 1), ("ties", 3, 545, 545),
+    ("ties", 3, 600, 700), ("beam", 3, 449, 449),
+    # an id repeated many times: fewer survivors than k, or survivors far
+    # apart in rank
+    ("few_ids", 4, 545, 16), ("few_ids", 2, MAX_CANDIDATES, 16),
+    ("crowded", 4, 769, 16), ("crowded", 2, MAX_CANDIDATES, 5),
+    ("crowded", 4, 1000, 64), ("dups_before", 4, 1000, 16),
+    ("dups_after", 4, 1000, 100),
 ])
 def test_merge_topk_kernel_random(cuda, kind, B, M, k):
     d, i = _merge_rows(kind, B, M, k)
@@ -398,24 +453,30 @@ def test_finalize_topk_with_deny_mask_on_card(cuda, B, ef, k, shared):
 
 
 @pytest.mark.cuda
-def test_merge_topk_graph_capture(cuda):
+@pytest.mark.parametrize("B,M,k", [(32, 161, 64), (32, 545, 256),
+                                   (2, MAX_CANDIDATES, 16)])
+def test_merge_topk_graph_capture(cuda, B, M, k):
     """A merge captured in a CUDA graph (no host sync, no allocation
     beyond its outputs) replays to the plain version's bits on new
-    inputs."""
+    inputs: a load phase's row at ef 64 (the warp variant), a filter's
+    at ef 256 and the widest row (the wide variant, which sets its
+    shared-memory limit inside the capture, past the 48 KB default at
+    the widest)."""
     d, i = (torch.from_numpy(a).to(cuda)
-            for a in _merge_rows("path", 32, 161, 64))
-    ops.merge_topk(d, i, 64)  # build and load before the capture
+            for a in _merge_rows("path", B, M, k))
+    ops.merge_topk(d, i, k)  # build and load before the capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        got = ops.merge_topk(d, i, 64)
-    for kind in ("path", "ties"):  # the second: duplicates and sentinels
-        d2, i2 = _merge_rows(kind, 32, 161, 64)
+        got = ops.merge_topk(d, i, k)
+    # the second and third: duplicates and sentinels
+    for kind in ("path", "ties", "dups_before"):
+        d2, i2 = _merge_rows(kind, B, M, k + 1)
         d.copy_(torch.from_numpy(d2))
         i.copy_(torch.from_numpy(i2))
         graph.replay()
         torch.cuda.synchronize()
-        for g, w in zip(got, ref.merge_topk_ref(d, i, 64)):
+        for g, w in zip(got, ref.merge_topk_ref(d, i, k)):
             assert torch.equal(g, w)
 
 
@@ -428,7 +489,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ops.merge_topk(torch.zeros((2, 3), device=cuda),
                        torch.zeros((2, 3), dtype=torch.int32), 2)
-    wide = (1, MAX_CANDIDATES + 1)  # more than one block's shared memory
+    wide = (1, MAX_CANDIDATES + 1)  # past the widest row the merge takes
     with pytest.raises(ValueError):
         ops.merge_topk(torch.zeros(wide, device=cuda),
                        torch.zeros(wide, dtype=torch.int32, device=cuda), 2)

@@ -276,6 +276,43 @@ def test_merge_topk_plain_path_rows(B, M):
     assert (got[2] >= 0).all()  # 64 winners a row, none a sentinel
 
 
+# the rows a filter's widened beam sends past 256 entries: the per-op hop
+# step at ef 256 (ef + degree 32) and the load phases at ef 256 and 208
+# (2·ef + 33), batched and single
+FILTER_ROWS = [(32, 288, 256), (1, 288, 256), (32, 545, 256),
+               (1, 545, 256), (32, 449, 208)]
+
+
+@pytest.mark.parametrize("kind", ["path", "ties", "repeated"])
+@pytest.mark.parametrize("B,M,k", FILTER_ROWS)
+def test_merge_topk_plain_filter_rows(B, M, k, kind):
+    """The filter rows in three forms: as the beam merge sends them (a
+    k-wide sorted beam, then new entries, ids distinct, all valid);
+    tie-heavy (distances rounded to 0.01; ids -1, NaN, +inf and -inf
+    distances); and with ids repeated across the row (every id of the
+    first half again in the second, the copies 256 or more apart in the
+    longer rows, some at equal distance)."""
+    rng = np.random.default_rng(B * 1000 + M + k)
+    ids = np.stack([rng.choice(10**6, M, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    if kind == "path":
+        d = np.concatenate([np.sort(rng.random((B, k)), 1),
+                            rng.random((B, M - k))], 1)
+    elif kind == "ties":
+        d = np.round(rng.random((B, M)), 2)
+        ids[rng.random((B, M)) < 0.1] = -1
+        d[rng.random((B, M)) < 0.05] = np.nan
+        d[rng.random((B, M)) < 0.03] = np.inf
+        d[rng.random((B, M)) < 0.03] = -np.inf
+    else:
+        h = M // 2
+        ids[:, M - h:] = ids[:, :h]
+        d = np.round(rng.random((B, M)), 1)
+    got = _check_merge(d.astype(np.float32), ids, k)
+    if kind == "path":
+        assert (got[2] >= 0).all()  # k winners a row, none a sentinel
+
+
 @pytest.mark.parametrize("best", ["first", "second"])
 def test_merge_topk_plain_duplicate_order(best):
     """Every id twice: its best copy in the first half of the row (the
